@@ -12,9 +12,8 @@ body jitted.  `--dist N` runs the same solve with the matrix nnz-sharded
 over an N-device mesh (`partition_row_plans` + `spmv_dist_planned`) —
 set SBLAS_FORCE_CPU_DEVICES=1 to use a virtual CPU mesh.
 
-This script keeps a HOST-side loop (progress prints + the measured
-dispatch-batching note in examples/pagerank.py); the library path is
-`sblas_tpu.solvers.cg`, which fuses the whole solve into one
+This script keeps a HOST-side loop (progress prints); the library path is
+`sblas.solvers.cg`, which fuses the whole solve into one
 `lax.while_loop` dispatch.
 
 No reference analog: S-BLAS ships kernels only; this shows them composed.
@@ -34,8 +33,8 @@ def build_spd(n: int, dtype):
     """Shell-proxy pattern, symmetrized values, diagonally dominant."""
     import numpy as np
 
-    from sblas_tpu.containers import CooMatrix
-    from sblas_tpu.io.generate import fem_shell_like
+    from sblas.containers import CooMatrix
+    from sblas.io.generate import fem_shell_like
 
     nx = max(int(round((n / 6) ** 0.5 * (201 / 75) ** 0.5)), 4)
     ny = max(n // (6 * nx), 2)
@@ -66,6 +65,9 @@ def main() -> int:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", max(args.dist, 1))
     import jax
+
+    from sblas.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -83,7 +85,7 @@ def main() -> int:
     x_true = rng.standard_normal(A.shape[0]).astype(dtype)
 
     if args.dist:
-        from sblas_tpu.parallel import (make_mesh, partition_row_plans,
+        from sblas.parallel import (make_mesh, partition_row_plans,
                                         spmv_dist_planned)
         mesh = make_mesh(args.dist)
         shards = partition_row_plans(A, mesh.shape["shards"], dtype=jdt,
@@ -95,7 +97,7 @@ def main() -> int:
             return spmv_dist_planned(shards, v, 1.0, 0.0,
                                      jnp.zeros_like(v), mesh)
     else:
-        from sblas_tpu.ops import make_plan, spmv
+        from sblas.ops import make_plan, spmv
         t0 = time.time()
         plan = make_plan(A, dtype=jdt, op="spmv")
         print(f"plan: {type(plan).__name__} (build {time.time() - t0:.1f}s)")

@@ -6,9 +6,9 @@ habitat (power iteration over a web graph with hub columns).
 
 Builds the column-stochastic transition matrix P^T from the webbase-like
 proxy (out-degree-normalized, transposed so ranks update as r' = a*P^T r
-+ (1-a)/n + dangling mass), plans it once (`make_plan(op="spmv")` — the
-routed engine for web-scale structure), and iterates until the L1 change
-passes `tol`.  Set SBLAS_FORCE_CPU_DEVICES=1 to run off-TPU.
++ (1-a)/n + dangling mass), plans it once (`make_plan(op="spmv")`), and
+iterates until the L1 change passes `tol`.  Set SBLAS_FORCE_CPU_DEVICES=1
+to run on the CPU.
 """
 
 from __future__ import annotations
@@ -33,12 +33,15 @@ def main() -> int:
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
+
+    from sblas.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
-    from sblas_tpu.containers import CooMatrix
-    from sblas_tpu.io.generate import webbase_like
-    from sblas_tpu.ops import make_plan, spmv
+    from sblas.containers import CooMatrix
+    from sblas.io.generate import webbase_like
+    from sblas.ops import make_plan, spmv
 
     t0 = time.time()
     G = webbase_like(n=args.n, avg_deg=3.1,
@@ -70,10 +73,8 @@ def main() -> int:
     t0 = time.time()
     it, delta = 0, 1.0
     while it < args.maxiter and delta > args.tol:
-        # NB: fetching the scalar every iteration costs a sync round trip
-        # (~30 ms here), but batching dispatches measured 7x SLOWER on
-        # this attachment (deep async chains serialize badly) — keep the
-        # per-iteration fetch
+        # NB: fetching the scalar every iteration costs a sync round trip;
+        # the library path (sblas.solvers.pagerank) fuses the loop
         r, d = step(r, plan)
         it += 1
         delta = float(d)

@@ -46,6 +46,9 @@ def main() -> int:
         jax.config.update("jax_num_cpu_devices", max(args.devices, 1))
 
     import jax
+
+    from sblas.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     # the example computes in f64 (tight tolerances on a probability
     # vector); without x64 JAX silently truncates to f32 and the printed
     # exchange bytes would overstate 2x
@@ -53,10 +56,10 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from sblas_tpu.containers import CooMatrix
-    from sblas_tpu.io.generate import webbase_like
-    from sblas_tpu.parallel import make_mesh, partition_xfoot, spmv_xfoot
-    from sblas_tpu.utils.timing import timed
+    from sblas.containers import CooMatrix
+    from sblas.io.generate import webbase_like
+    from sblas.parallel import make_mesh, partition_xfoot, spmv_xfoot
+    from sblas.utils.timing import timed
 
     n_dev = min(args.devices, len(jax.devices()))
     mesh = make_mesh(n_dev)

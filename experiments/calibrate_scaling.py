@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
-"""Calibrate the scaling model's device constants (VERDICT r4 next#6).
+"""Calibrate the scaling model's device constants.
 
 `scaling.GATHER_NS` and `scaling.ROUTE_NS` price the xfoot extraction
-engines (parallel/xfoot.py:206-207) and ride into every scaling
-projection, but until round 5 they were single-point globals with no
-measurement record.  This script measures both at three sizes each on
-the chip (two-point estimator) and writes `scaling_calib.json` at the
-repo root; `scaling.py` loads it and stamps parameter provenance into
-the scorecard header.
+engines (parallel/xfoot.py) and ride into every scaling projection.
+This script measures both at three sizes each on the device (two-point
+estimator) and writes `scaling_calib.json` at the repo root, with the
+device kind in its record; `scaling.py` loads it and reports the
+constants' provenance.
 
 * gather: out[i] = table[idx[i]] — XLA elementwise gather from a
   shard-scale table (256k entries, the x_ext regime xfoot prices),
@@ -42,7 +41,7 @@ def measure_gather(table_n: int = 262_144,
                    out_sizes=(262_144, 1_048_576, 4_194_304)) -> dict:
     import jax.numpy as jnp
 
-    from sblas_tpu.utils.benchtime import loop_time2_ms
+    from sblas.utils.benchtime import loop_time2_ms
 
     rng = np.random.RandomState(7)
     table = jnp.asarray(rng.random_sample(table_n).astype(np.float32))
@@ -62,9 +61,9 @@ def measure_gather(table_n: int = 262_144,
 def measure_route(sizes=(262_144, 2_097_152, 8_388_608)) -> dict:
     import jax.numpy as jnp
 
-    from sblas_tpu.ops.route import (apply_route, build_route,
+    from sblas.ops.route import (apply_route, build_route,
                                      route_tables_device)
-    from sblas_tpu.utils.benchtime import loop_time2_ms
+    from sblas.utils.benchtime import loop_time2_ms
 
     rng = np.random.RandomState(11)
     out = {}
@@ -91,12 +90,16 @@ def measure_route(sizes=(262_144, 2_097_152, 8_388_608)) -> dict:
 
 def main() -> int:
     import jax
+
+    from sblas.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     dev = jax.devices()[0]
     gather = measure_gather()
     route = measure_route()
     calib = {
         "meta": {
             "device": str(dev),
+            "device_kind": dev.device_kind,
             "platform": dev.platform,
             "date": time.strftime("%Y-%m-%d"),
             "method": "experiments/calibrate_scaling.py two-point "

@@ -1,24 +1,23 @@
 #!/usr/bin/env python3
-"""Plan-selection robustness matrix (VERDICT r4 next#1).
+"""Plan-selection robustness matrix.
 
 `make_plan`'s auto-selection heuristics (ops/__init__.py) were tuned on the
 two reference benchmark classes (banded FEM shell, power-law web).  This
-experiment chip-measures EVERY feasible forced layout against the auto
+experiment measures on the device EVERY feasible forced layout against the auto
 choice across ~10 synthetic structure classes x {SpMV, SpMM K=64}, so the
 claim "auto is within 1.15x of the best forced plan" holds (or the
 heuristic gets fixed) beyond the classes it was tuned on.  The reference
 delegates this entirely to cuSPARSE's format-agnostic dispatch
-(/root/reference/spmm.h:146-149); here the selection logic is ours, so it
+(spmm.h:146-149); here the selection logic is ours, so it
 needs its own evidence.
 
 Auto is recorded as a CHOICE (which kind make_plan picked) and priced at
 that kind's forced timing — make_plan(force=k) and the auto path build
-identical plans, so timing auto separately would only double chip time.
+identical plans, so timing auto separately would only double device time.
 
 Resumable: rows append to `plan_matrix_results.jsonl` keyed by
-(class, op, kind); completed keys are skipped on re-run (the attachment
-drops mid-window often enough that this matters).  `--report` renders the
-committed PLAN_MATRIX.md from the JSONL without touching the device.
+(class, op, kind); completed keys are skipped on re-run.  `--report`
+renders PLAN_MATRIX.md from the JSONL without touching the device.
 
     python experiments/plan_matrix.py [--classes a,b] [--report]
 """
@@ -45,7 +44,7 @@ _BYTES_LIMIT = 2 << 30
 
 
 def matrix_classes():
-    from sblas_tpu.io.generate import (adversarial_skew, block_dominant,
+    from sblas.io.generate import (adversarial_skew, block_dominant,
                                        fem_banded_like, fem_shell_like,
                                        pattern_symmetric, road_network_like,
                                        scattered_sparse, uniform_random,
@@ -56,7 +55,7 @@ def matrix_classes():
         "shell_fem": lambda: fem_shell_like(nx=101, ny=50, dof=6,
                                             n_target=30_300, dtype=f32),
         "web_power": lambda: webbase_like(n=200_000, dtype=f32),
-        # untested-structure classes (VERDICT r4 next#1 list)
+        # further structure classes
         "dense_band": lambda: fem_banded_like(n=30_000, half_band=36,
                                               dtype=f32),
         "block_dom": lambda: block_dominant(dtype=f32),
@@ -74,7 +73,7 @@ def matrix_classes():
 def _feasible(kind: str, A, op: str) -> str | None:
     """None when the forced layout is buildable at sane memory, else the
     skip reason (recorded in the JSONL so skips are auditable)."""
-    from sblas_tpu.ops import bell_stats, dia_stats
+    from sblas.ops import bell_stats, dia_stats
     m = A.shape[0]
     if kind == "routed":
         if op != "spmv":
@@ -104,19 +103,19 @@ def _feasible(kind: str, A, op: str) -> str | None:
 
 
 def _kind_of(plan) -> str:
-    from sblas_tpu.ops import (BsrPlan, CooPlan, DiaPlan, EllPlan,
+    from sblas.ops import (BsrPlan, CooPlan, DiaPlan, EllPlan,
                                RoutedPlan, WcooPlan)
     return {DiaPlan: "dia", RoutedPlan: "routed", BsrPlan: "bsr",
             EllPlan: "ell", WcooPlan: "wcoo", CooPlan: "coo"}[type(plan)]
 
 
 def _mv_step(y, plan, x):
-    from sblas_tpu.ops import spmv
+    from sblas.ops import spmv
     return spmv(plan, x + 1e-6 * y[0], 1.0, 1.0, y)
 
 
 def _mm_step(C, plan, B):
-    from sblas_tpu.ops import spmm
+    from sblas.ops import spmm
     return spmm(plan, B + 1e-6 * C[:1].mean(), 1.0, 1.0, C)
 
 
@@ -126,7 +125,7 @@ def _time_entry(step, carry, args) -> float:
     spreads microsecond kernels by the +-5 ms dispatch constant).  iters
     quantize to powers of 4 so the estimate pass's compiled program is
     reused when the choice lands back on 16."""
-    from sblas_tpu.utils.benchtime import loop_time2_ms, loop_time_ms
+    from sblas.utils.benchtime import loop_time2_ms, loop_time_ms
     est = loop_time_ms(step, carry, iters=16, reps=3, args=args)
     if est >= 2.0:
         return est
@@ -137,13 +136,14 @@ def _time_entry(step, carry, args) -> float:
 
 
 def run(only=None) -> int:
+    import jax
     import jax.numpy as jnp
 
-    from sblas_tpu.containers import DenseMatrix, DenseVector
-    from sblas_tpu.io.plancache import cached_plan
-    from sblas_tpu.ops import make_plan, spmm, spmv
-    from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-    from sblas_tpu.utils.verify import assert_equal
+    from sblas.containers import DenseMatrix, DenseVector
+    from sblas.io.plancache import cached_plan
+    from sblas.ops import make_plan, spmm, spmv
+    from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+    from sblas.utils.verify import assert_equal
 
     done = set()
     if os.path.exists(RESULTS):
@@ -177,7 +177,8 @@ def run(only=None) -> int:
         want_mv = want_mm = None
         for op, kind in todo:
             base = {"class": cname, "op": op, "kind": kind,
-                    "shape": [m, n], "nnz": int(A.nnz)}
+                    "shape": [m, n], "nnz": int(A.nnz),
+                    "device_kind": jax.devices()[0].device_kind}
             if kind == "auto":
                 plan = make_plan(A, dtype=jnp.float32, op=op)
                 emit({**base, "choice": _kind_of(plan), "status": "ok"})
@@ -236,8 +237,9 @@ def report() -> int:
     lines = [
         "# Plan-selection robustness matrix",
         "",
-        "Chip-measured (v5e, two-point estimator for sub-2ms kernels; see",
-        "`experiments/plan_matrix.py`).  Auto is priced at its chosen",
+        f"Measured on {rows[0].get('device_kind', 'an unrecorded device')}"
+        " (two-point estimator for sub-2ms",
+        "kernels; see `experiments/plan_matrix.py`).  Auto is priced at its chosen",
         "kind's forced timing (identical plans).  `--` = layout skipped",
         "(infeasible memory / structural guard) or failed; skip reasons",
         "are in `plan_matrix_results.jsonl`.",

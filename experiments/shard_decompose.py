@@ -1,23 +1,21 @@
 #!/usr/bin/env python3
 """Per-stage decomposition of routed SpMV at distributed-shard scale.
 
-VERDICT r3 next#2: the heaviest n=16 webbase shard runs 76.4 us where
-linear scaling claims 41.6 us.  This script isolates every stage of
-`spmv_routed` (ops/rspmv.py) on the real chip so the overhead either
-gets attacked where it actually lives or goes into BASELINE.md as a
-measured irreducible floor.
+This script isolates every stage of `spmv_routed` (ops/rspmv.py) for the
+heaviest shard of an n-way split of the webbase proxy, on the device, so
+per-shard overhead is attributed to the stage where it lives.
 
 Stages timed independently (each as its own fori_loop program, plans
 passed as loop args per CLAUDE.md):
   full        the whole spmv_routed call
   xroute      balanced-relabel x permutation (apply_route, N_x)
-  gather      slab-bucket Pallas gather (+ peel contribution)
+  gather      slab-bucket gather (+ peel contribution)
   mainroute   gather order -> lane stack (apply_route, route_n)
   segsum      sorted block segment_sum over the stack
   unrank      rank order -> row order (apply_route, unrank_n)
   epilogue    beta*y + alpha*ax
 
-Run on the real TPU, fresh process, no env overrides:
+Run on the GPU, fresh process, no env overrides:
     python experiments/shard_decompose.py [n_shards ...]
 """
 
@@ -33,14 +31,14 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from sblas_tpu.containers import DenseVector
-    from sblas_tpu.io.generate import webbase_like
-    from sblas_tpu.io.plancache import cached_plan
-    from sblas_tpu.ops.route import apply_route
-    from sblas_tpu.ops.rspmv import RoutedPlan, spmv_routed, \
+    from sblas.containers import DenseVector
+    from sblas.io.generate import webbase_like
+    from sblas.io.plancache import cached_plan
+    from sblas.ops.route import apply_route
+    from sblas.ops.rspmv import RoutedPlan, spmv_routed, \
         _gathered_contrib
-    from sblas_tpu.parallel.xfoot import xfoot_worst_local
-    from sblas_tpu.utils.benchtime import dispatch_overhead_ms, \
+    from sblas.parallel.xfoot import xfoot_worst_local
+    from sblas.utils.benchtime import dispatch_overhead_ms, \
         loop_time2_ms
 
     print(f"# device {jax.devices()[0]}, dispatch "

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Summarize jax.profiler traces from profiling.py (VERDICT r4 next#5).
+"""Summarize jax.profiler traces from profiling.py.
 
 The reference's observability story is `nsys profile` with UM page-fault
 counters (profiling.sh:3-21); ours is jax.profiler.  This tool turns the
@@ -7,15 +7,15 @@ captured Chrome-trace JSON (`*.trace.json.gz` under each trace dir) into
 the numbers a reader actually wants:
 
 * wall time of the traced scope (the named TraceAnnotation);
-* device busy time (sum of `XLA Ops` events on the TPU pid) and its
+* device busy time (sum of `XLA Ops` events on the device pid) and its
   fraction of wall — the compute/transfer overlap figure;
 * host->device transfer dispatch time (device_put / BatchedCopyToDevice
   host events) — the page-migration analog;
 * top device ops by total duration.
 
-Pure stdlib; runs offline on committed trace dirs.
+Pure stdlib; runs offline on trace dirs.
 
-    python experiments/trace_summary.py traces_full/*
+    python experiments/trace_summary.py traces/*
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def summarize(trace_dir: str) -> dict:
             pids[e["pid"]] = e["args"]["name"]
         if e.get("ph") == "M" and e.get("name") == "thread_name":
             tids[(e["pid"], e["tid"])] = e["args"]["name"]
-    dev_pid = next((p for p, n in pids.items() if "TPU" in n), None)
+    dev_pid = next((p for p, n in pids.items() if "/device:" in n), None)
     name = os.path.basename(trace_dir.rstrip("/"))
     xs = [e for e in ev if e.get("ph") == "X"]
     # wall = full event span: the named scope's own duration can end
@@ -105,7 +105,7 @@ def summarize(trace_dir: str) -> dict:
 
 
 def main(argv) -> int:
-    dirs = argv or sorted(glob.glob("traces_full/*"))
+    dirs = argv or sorted(glob.glob("traces/*"))
     for d in dirs:
         if not os.path.isdir(d):
             continue

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare a real .mtx against its structure-matched proxy generator.
 
-The benchmark numbers ride synthetic proxies (sblas_tpu/io/generate.py)
+The benchmark numbers ride synthetic proxies (sblas/io/generate.py)
 because the reference's SuiteSparse workloads are unfetchable here
 (reference matrices/get_matrices.sh:4-13; no network egress).  This tool
 makes the proxy argument CHECKABLE: point it at the real file the day one
@@ -35,8 +35,8 @@ def _fmt(v):
 
 
 def main(argv) -> int:
-    from sblas_tpu.containers import CsrMatrix
-    from sblas_tpu.io.generate import (fem_shell_like, structure_stats,
+    from sblas.containers import CsrMatrix
+    from sblas.io.generate import (fem_shell_like, structure_stats,
                                        webbase_like)
 
     if not argv:

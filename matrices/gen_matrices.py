@@ -3,7 +3,7 @@
 
 Analog of the reference's matrices/get_matrices.sh (downloads SuiteSparse
 webbase-1M and s3dkq4m2); this environment has no network egress, so we
-generate structure-matched proxies instead (see sblas_tpu/io/generate.py):
+generate structure-matched proxies instead (see sblas/io/generate.py):
 
     python matrices/gen_matrices.py [--small] [outdir]
 
@@ -17,12 +17,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sblas_tpu.io.generate import fem_shell_like, webbase_like  # noqa: E402
-from sblas_tpu.io.mmio import write_mtx  # noqa: E402
+from sblas.io.generate import fem_shell_like, webbase_like  # noqa: E402
+from sblas.io.mmio import write_mtx  # noqa: E402
 
 
-def main() -> int:
-    args = sys.argv[1:]
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
     small = "--small" in args
     args = [a for a in args if a != "--small"]
     outdir = args[0] if args else os.path.dirname(__file__) or "."
@@ -39,7 +39,7 @@ def main() -> int:
         coo = csr.to_coo()
         print(f"writing {path}: {csr.shape} nnz={csr.nnz}")
         write_mtx(path, *csr.shape, coo.row_idx, coo.col_idx, coo.values,
-                  comment="synthetic proxy generated by sblas_tpu "
+                  comment="synthetic proxy generated by sblas "
                           "(zero-egress environment)")
     return 0
 

@@ -8,7 +8,7 @@
 //
 // Scope: the *data section* of a coordinate file only.  Banner/size-line
 // parsing, symmetry expansion, and CSR conversion stay in Python
-// (sblas_tpu/io/mmio.py) so there is exactly one implementation of the
+// (sblas/io/mmio.py) so there is exactly one implementation of the
 // Matrix-Market semantics; this code only turns ASCII triplets into arrays.
 //
 // Build: make -C native    (g++ -O3 -shared -fPIC)

@@ -1,7 +1,7 @@
 // Bipartite regular edge coloring via recursive Euler splitting.
 //
-// Plan-time core of the routed-permutation engine (sblas_tpu/ops/route.py):
-// decomposing an arbitrary device-side permutation into TPU-executable
+// Plan-time core of the routed-permutation engine (sblas/ops/route.py):
+// decomposing an arbitrary device-side permutation into gather-free
 // stages (per-row 128-lane shuffles + transposes) reduces, via the
 // Birkhoff/Clos routing theorem, to coloring a d-regular bipartite
 // multigraph with exactly d colors so that every node sees each color
@@ -16,7 +16,7 @@
 // level instead of chasing original edge ids.
 //
 // No analog in the reference (its gather/scatter problems are cuSPARSE's,
-// e.g. spmm.h:146-149); this is TPU-native infrastructure.
+// e.g. spmm.h:146-149).
 
 #include <cstddef>
 #include <cstdint>

@@ -3,12 +3,12 @@
 
 The reference runs `nsys profile --trace=cuda,nvtx` with UM page-fault
 counters over {SpMM mode 2, SpMV} x {tuning off, on} (profiling.sh:3-21).
-The TPU equivalents:
+The equivalents here:
 
 * nsys trace            -> jax.profiler.trace (XPlane/Perfetto, view in
                            XProf/TensorBoard or ui.perfetto.dev)
 * NVTX ranges           -> jax.profiler.TraceAnnotation via
-                           sblas_tpu.utils.timing.trace_scope
+                           sblas.utils.timing.trace_scope
 * UM page-fault counts  -> host<->HBM DMA activity, visible as transfer ops
                            on the trace timeline
 
@@ -36,10 +36,10 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from sblas_tpu.containers import DenseMatrix, DenseVector
-    from sblas_tpu.io.generate import fem_shell_like, webbase_like
-    from sblas_tpu.memory import host_resident_plan, spmm_um, spmv_um
-    from sblas_tpu.utils.timing import trace_scope
+    from sblas.containers import DenseMatrix, DenseVector
+    from sblas.io.generate import fem_shell_like, webbase_like
+    from sblas.memory import host_resident_plan, spmm_um, spmv_um
+    from sblas.utils.timing import trace_scope
 
     # the reference profiles spmm_test_um on s3dkq4m2 and spmv_test_um on
     # webbase-1M (profiling.sh:6,16) — same split here, over the proxies

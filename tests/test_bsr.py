@@ -1,16 +1,16 @@
-"""Block-sparse (BELL) plan and MXU-kernel tests vs the CPU oracle."""
+"""Block-sparse (BELL) plan and batched-matmul kernel tests vs the CPU oracle."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu import assert_equal
-from sblas_tpu.containers import CsrMatrix, DenseMatrix, DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas import assert_equal
+from sblas.containers import CsrMatrix, DenseMatrix, DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random, webbase_like)
-from sblas_tpu.ops import BsrPlan, bell_stats, make_plan, spmm, spmv
-from sblas_tpu.ops.bsr import spmm_bsr, spmv_bsr
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.ops import BsrPlan, bell_stats, make_plan, spmm, spmv
+from sblas.ops.bsr import spmm_bsr, spmv_bsr
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
 
 
 MATRICES = {
@@ -91,7 +91,7 @@ def test_bell_stats_banded():
 
 
 def test_bsr_mode1_distributed(ash85):
-    from sblas_tpu.parallel import make_mesh, spmm_mode1, sync_to_host
+    from sblas.parallel import make_mesh, spmm_mode1, sync_to_host
     mesh = make_mesh(4)
     B = DenseMatrix.random(ash85.width, 32)
     C = DenseMatrix.constant(ash85.height, 32, 1.0)
@@ -99,3 +99,15 @@ def test_bsr_mode1_distributed(ash85):
     got = spmm_mode1(plan, jnp.asarray(B.values), 3.0, 4.0,
                      jnp.asarray(C.values), mesh)
     assert_equal(sync_to_host(got), spmm_cpu(ash85, B, 3.0, 4.0, C))
+
+
+@pytest.mark.parametrize("k", [256, 512])
+def test_bsr_spmm_wide_k(k):
+    """Wide B through the `spmm` dispatcher: the XLA BELL kernel serves
+    every K (there is no separate wide-K kernel)."""
+    A = fem_banded_like(n=600, half_band=12)
+    plan = make_plan(A, dtype=jnp.float64, force="bsr")
+    B = DenseMatrix.random(A.width, k)
+    C = DenseMatrix.constant(A.height, k, 1.0)
+    got = spmm(plan, jnp.asarray(B.values), 2.0, 3.0, jnp.asarray(C.values))
+    assert_equal(np.asarray(got), spmm_cpu(A, B, 2.0, 3.0, C))

@@ -1,4 +1,4 @@
-"""CLI-surface differential fuzz (VERDICT r4 next#8).
+"""CLI-surface differential fuzz.
 
 The reference's drivers ARE its integration tests (SURVEY §4); the
 targeted CLI tests cover happy paths and selected errors but not the
@@ -85,11 +85,11 @@ def test_cli_surface(fmt, field, symm, tmp_path, capsys):
     path = tmp_path / "fuzz.mtx"
     _write_mm(path, rng, fmt, field, symm)
 
-    from sblas_tpu.cli.spmm_test import main as spmm_main
-    from sblas_tpu.cli.spmm_test_um import main as spmm_um_main
-    from sblas_tpu.cli.spmv_test import main as spmv_main
-    from sblas_tpu.cli.spmv_test_um import main as spmv_um_main
-    from sblas_tpu.cli.unit_test import main as unit_main
+    from sblas.cli.spmm_test import main as spmm_main
+    from sblas.cli.spmm_test_um import main as spmm_um_main
+    from sblas.cli.spmv_test import main as spmv_main
+    from sblas.cli.spmv_test_um import main as spmv_um_main
+    from sblas.cli.unit_test import main as unit_main
 
     cache = str(tmp_path / "plan.npz")
     runs = [

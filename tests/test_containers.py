@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import scipy.sparse
 
-from sblas_tpu.containers import (CooMatrix, CscMatrix, CsrMatrix,
+from sblas.containers import (CooMatrix, CscMatrix, CsrMatrix,
                                   DenseMatrix, DenseVector, MajorOrder)
-from sblas_tpu.io.generate import adversarial_skew, uniform_random
-from sblas_tpu.utils import hostmath
+from sblas.io.generate import adversarial_skew, uniform_random
+from sblas.utils import hostmath
 
 
 def _random_coo(rng, m=23, n=17, nnz=60):
@@ -91,7 +91,7 @@ def test_hostmath_primitives():
 
 
 def test_shape_validation():
-    from sblas_tpu.utils.errors import ShapeError
+    from sblas.utils.errors import ShapeError
     with pytest.raises(ShapeError):
         CsrMatrix(np.zeros(3, np.int64), np.zeros(0, np.int64),
                   np.zeros(0), (5, 5))

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu.config import SBlasConfig
-from sblas_tpu.containers import CsrMatrix, DenseMatrix, DenseVector
-from sblas_tpu.io.generate import fem_banded_like, webbase_like
-from sblas_tpu.ops import make_plan, spmm, spmv
-from sblas_tpu.ops.dia import DiaPlan, dia_stats, spmm_dia, spmv_dia
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.utils.verify import assert_equal
+from sblas.config import SBlasConfig
+from sblas.containers import CsrMatrix, DenseMatrix, DenseVector
+from sblas.io.generate import fem_banded_like, webbase_like
+from sblas.ops import make_plan, spmm, spmv
+from sblas.ops.dia import DiaPlan, dia_stats, spmm_dia, spmv_dia
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.utils.verify import assert_equal
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +75,7 @@ def test_rectangular_tall_and_wide():
 
 
 def test_make_plan_dia_policy(banded):
-    from sblas_tpu.ops.bsr import BsrPlan
+    from sblas.ops.bsr import BsrPlan
 
     # SpMV planning: DIA when banded — unless BELL's blowup is low
     # enough that its HBM-bound matvec beats DIA's per-diagonal passes
@@ -84,16 +84,13 @@ def test_make_plan_dia_policy(banded):
     assert isinstance(make_plan(banded, op="spmv"), DiaPlan)
     wide = fem_banded_like(n=700, half_band=40, dtype=np.float64)
     assert isinstance(make_plan(wide, op="spmv"), BsrPlan)  # blowup 5.4
-    # SpMM / mixed use: small-padding BELL wins outright on the MXU
-    # (PLAN_MATRIX.md: bsr 0.115 vs dia 0.399 ms on the dense band)
+    # SpMM / mixed use: small-padding BELL is chosen on the dense band
     assert isinstance(make_plan(banded), BsrPlan)
     assert isinstance(make_plan(banded, op="spmm"), BsrPlan)
     assert isinstance(make_plan(wide, op="spmm"), BsrPlan)
     # (lean DIA overtakes BELL again once padded bytes grow HBM-bound —
-    # >256 MB, unreachable at unit-test scale; chip confirmation in
-    # ACCEPTANCE_R5: dia 1.462 vs bsr 1.716 ms at 465 MB, and
-    # tests/test_plan_choices.py pins the full-shell choice at
-    # experiment scale)
+    # >256 MB, unreachable at unit-test scale; tests/test_plan_choices.py
+    # pins the full-shell choice at experiment scale)
 
 
 def test_make_plan_rejects_unbanded():

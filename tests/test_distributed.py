@@ -1,4 +1,4 @@
-"""Multi-host bootstrap tests (VERDICT r4 next#4).
+"""Multi-host bootstrap tests.
 
 `parallel.mesh.init_distributed` is the framework's DCN entry point
 (PARITY #25) — the reference is single-node (README.md:28), so this
@@ -32,18 +32,18 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 jax.config.update("jax_enable_x64", True)
-from sblas_tpu.parallel import init_distributed, make_mesh
+from sblas.parallel import init_distributed, make_mesh
 init_distributed(coordinator_address=f"localhost:{port}",
                  num_processes=nproc, process_id=pid)
 assert jax.process_count() == nproc, jax.process_count()
 init_distributed()  # idempotent re-entry must be a no-op, not a raise
 import numpy as np, jax.numpy as jnp
-from sblas_tpu.containers import DenseVector
-from sblas_tpu.io.generate import uniform_random
-from sblas_tpu.parallel.modes import spmv_dist
-from sblas_tpu.partition import partition_nnz_balanced
-from sblas_tpu.ops.cpu_reference import spmv_cpu
-from sblas_tpu.utils.verify import check_equal
+from sblas.containers import DenseVector
+from sblas.io.generate import uniform_random
+from sblas.parallel.modes import spmv_dist
+from sblas.partition import partition_nnz_balanced
+from sblas.ops.cpu_reference import spmv_cpu
+from sblas.utils.verify import check_equal
 A = uniform_random(512, 512, 4, seed=3)
 segs = partition_nnz_balanced(A, 8, dtype=jnp.float64)
 x = DenseVector.random(512, dtype=np.float64)
@@ -59,7 +59,7 @@ print(f"RESULT pid={pid} ok={rep.ok} sum={got.sum():.12e}", flush=True)
 _BAD_COORD = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
-from sblas_tpu.parallel import init_distributed
+from sblas.parallel import init_distributed
 try:
     init_distributed(coordinator_address="localhost:9",  # discard port
                      num_processes=2, process_id=1,
@@ -73,7 +73,7 @@ print("UNEXPECTED-CONTINUED", flush=True)
 _NO_ARGS = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
-from sblas_tpu.parallel import init_distributed
+from sblas.parallel import init_distributed
 try:
     init_distributed()  # no coordinator, not in a recognized cluster env
 except Exception as e:

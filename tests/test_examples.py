@@ -7,7 +7,7 @@ import os
 
 def test_cg_single():
     env = dict(os.environ)
-    env["SBLAS_FORCE_CPU_DEVICES"] = "1"  # never race the real TPU from tests
+    env["SBLAS_FORCE_CPU_DEVICES"] = "1"  # examples run on the CPU mesh
     r = subprocess.run(
         [sys.executable, "examples/cg.py", "--n", "3000", "--f64",
          "--tol", "1e-8"],

@@ -1,13 +1,12 @@
-"""Chip-window experiment scripts: wiring smoke on the CPU mesh.
+"""Experiment scripts: wiring smoke on the CPU mesh.
 
-The scripts under `experiments/` are the round's queued on-chip
-measurements; an ImportError, stale attribute, or cache-path bug in one
-of them would only surface on the real chip and burn an attachment
-window (the round-3/4 outages made those windows scarce).  Each main()
-runs end to end here at toy scale in a temp cwd (so `.bench_cache`
-writes are isolated), with the workload generators and the loop timer
-patched down — asserting rc == 0 and that every script still speaks the
-current library API.  Numbers produced here are meaningless by design.
+The scripts under `experiments/` are on-card measurements; an
+ImportError, stale attribute, or cache-path bug in one of them would only
+surface on the card and waste a run there.  Each main() runs end to end
+here at toy scale in a temp cwd (so `.bench_cache` writes are isolated),
+with the workload generators and the loop timer patched down — asserting
+rc == 0 and that every script still speaks the current library API.
+Numbers produced here are meaningless by design.
 """
 
 import importlib.util
@@ -31,7 +30,7 @@ def _load(name):
 @pytest.fixture()
 def toy_world(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
-    import sblas_tpu.io.generate as gen
+    import sblas.io.generate as gen
     real_web = gen.webbase_like
 
     def small_web(*a, **kw):
@@ -39,7 +38,7 @@ def toy_world(monkeypatch, tmp_path):
                         dtype=kw.get("dtype", np.float32))
 
     monkeypatch.setattr(gen, "webbase_like", small_web)
-    import sblas_tpu.utils.benchtime as bt
+    import sblas.utils.benchtime as bt
     real_loop = bt.loop_time_ms
 
     def fast_loop(step, carry, iters=2, reps=1, args=()):
@@ -64,21 +63,6 @@ def test_stream_chunk_sweep(toy_world, capsys):
     assert mod.main() == 0
     out = capsys.readouterr().out
     assert out.count("chunk=") == 4
-
-
-def test_wcoo_gather_probe(toy_world, capsys):
-    mod = _load("wcoo_gather_probe")
-    assert mod.main() == 0
-    out = capsys.readouterr().out
-    assert "pallas gather oracle: OK" in out
-    assert "go/no-go" in out
-
-
-def test_bf16_transport_probe(toy_world, capsys):
-    mod = _load("bf16_transport_probe")
-    assert mod.main() == 0
-    out = capsys.readouterr().out
-    assert "bf16 transport speedup" in out
 
 
 def test_stress4m(toy_world, capsys):

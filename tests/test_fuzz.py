@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu.containers import CsrMatrix, DenseMatrix, DenseVector
-from sblas_tpu.ops import make_plan, spmm, spmv
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.utils.verify import assert_equal
+from sblas.containers import CsrMatrix, DenseMatrix, DenseVector
+from sblas.ops import make_plan, spmm, spmv
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.utils.verify import assert_equal
 
 KINDS = ["dia", "bsr", "ell", "wcoo", "coo", "routed"]
 
@@ -56,7 +56,7 @@ def test_fuzz_all_kinds(seed):
 def test_fuzz_um_streaming(seed):
     """Host-resident band streaming on random structures x random budgets
     x both tuning modes, every kind auto-selected, vs the oracle."""
-    from sblas_tpu.memory import host_resident_plan, spmm_um, spmv_um
+    from sblas.memory import host_resident_plan, spmm_um, spmv_um
     rng = np.random.default_rng(100 + seed)
     A = _random_csr(rng)
     budget = int(rng.integers(8, 200)) << 10
@@ -80,7 +80,7 @@ def test_fuzz_um_streaming(seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_um_hostdense(seed):
     """Random 2-D grid SpMM with B and C pinned host."""
-    from sblas_tpu.memory import (HostDense, host_resident_grid,
+    from sblas.memory import (HostDense, host_resident_grid,
                                   spmm_um_hostdense)
     rng = np.random.default_rng(200 + seed)
     A = _random_csr(rng)
@@ -102,8 +102,8 @@ def test_fuzz_um_hostdense(seed):
 def test_fuzz_distributed_kinds(seed):
     """Random structures through partition_row_plans with every applicable
     kind, distributed SpMV/SpMM vs the oracle on the 8-device mesh."""
-    from sblas_tpu.config import SBlasConfig
-    from sblas_tpu.parallel import (make_mesh, partition_row_plans,
+    from sblas.config import SBlasConfig
+    from sblas.parallel import (make_mesh, partition_row_plans,
                                     spmm_mode2_planned, spmv_dist_planned,
                                     sync_to_host)
     rng = np.random.default_rng(300 + seed)

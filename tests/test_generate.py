@@ -1,5 +1,5 @@
 """Synthetic-proxy generators: the structure fingerprint used to validate
-them against the real SuiteSparse files (VERDICT r2 missing#1)."""
+them against the real SuiteSparse files."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,7 @@ import pytest
 def test_structure_stats_fingerprint():
     """The proxy-validation fingerprint reports the planner-relevant
     properties with sane values on the webbase proxy."""
-    from sblas_tpu.io.generate import structure_stats, webbase_like
+    from sblas.io.generate import structure_stats, webbase_like
     W = webbase_like(n=20000, avg_deg=3.0, seed=5)
     st = structure_stats(W)
     assert st["shape"] == (20000, 20000)
@@ -23,7 +23,7 @@ def test_structure_stats_fingerprint():
 
 
 def test_structure_stats_symmetry_sample():
-    from sblas_tpu.io.generate import pattern_symmetric, structure_stats
+    from sblas.io.generate import pattern_symmetric, structure_stats
     st = structure_stats(pattern_symmetric(n=200, nnz_target=900))
     assert st["sym_pattern_sample"] == 1.0
 
@@ -31,8 +31,8 @@ def test_structure_stats_symmetry_sample():
 def test_compare_proxy_cli(tmp_path, capsys):
     import runpy
     import sys as _sys
-    from sblas_tpu.io.generate import pattern_symmetric
-    from sblas_tpu.io import mmio
+    from sblas.io.generate import pattern_symmetric
+    from sblas.io import mmio
     A = pattern_symmetric(n=60, nnz_target=200)
     coo = A.to_coo()
     p = str(tmp_path / "t.mtx")
@@ -55,8 +55,8 @@ def test_compare_proxy_cli(tmp_path, capsys):
 def test_structure_stats_rectangular():
     """Rectangular matrices must not crash the fingerprint; symmetry is
     reported as undefined (review finding: col id could index row_ptr)."""
-    from sblas_tpu.containers import CsrMatrix
-    from sblas_tpu.io.generate import structure_stats
+    from sblas.containers import CsrMatrix
+    from sblas.io.generate import structure_stats
     rp = np.array([0, 1, 2], dtype=np.int64)
     ci = np.array([40, 3], dtype=np.int64)
     A = CsrMatrix(rp, ci, np.ones(2), (2, 50))

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu.config import SBlasConfig
-from sblas_tpu.containers import DenseMatrix, DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas.config import SBlasConfig
+from sblas.containers import DenseMatrix, DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random)
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.parallel import (make_mesh2, partition_row_plans,
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.parallel import (make_mesh2, partition_row_plans,
                                 spmm_mode2_hier, spmv_dist_hier,
                                 sync_to_host)
-from sblas_tpu.utils.verify import assert_equal
+from sblas.utils.verify import assert_equal
 
 
 @pytest.mark.parametrize("s,c", [(2, 4), (4, 2)])
@@ -66,7 +66,7 @@ def test_hier_routed_kind():
 
 
 def test_hier_shard_count_mismatch():
-    from sblas_tpu.utils.errors import PartitionError
+    from sblas.utils.errors import PartitionError
     A = fem_banded_like(n=256, half_band=2, dtype=np.float64)
     shards = partition_row_plans(A, 4, dtype=jnp.float64)
     mesh = make_mesh2(2, 4)
@@ -76,7 +76,7 @@ def test_hier_shard_count_mismatch():
 
 
 def test_project_hier_beats_flat_over_dcn():
-    from sblas_tpu.scaling import project_flat_over_dcn, project_hier
+    from sblas.scaling import project_flat_over_dcn, project_hier
     S = 4_000_000  # webbase-class result bytes
     h = project_hier(0.77, S, 4, 4)
     f = project_flat_over_dcn(0.77, S, 4, 4)

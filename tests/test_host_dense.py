@@ -1,19 +1,18 @@
 """HBM-exceeding dense operands: B and C pinned host, 2-D cell-grid SpMM
-(reference DenseMatrix_um/DenseVector_um, matrix_um.h:735-814; VERDICT r1
-next#10)."""
+(reference DenseMatrix_um/DenseVector_um, matrix_um.h:735-814)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu import assert_equal
-from sblas_tpu.containers import DenseMatrix
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas import assert_equal
+from sblas.containers import DenseMatrix
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    webbase_like)
-from sblas_tpu.memory import (HostDense, host_resident_grid,
+from sblas.memory import (HostDense, host_resident_grid,
                               spmm_um_hostdense)
-from sblas_tpu.ops.cpu_reference import spmm_cpu
+from sblas.ops.cpu_reference import spmm_cpu
 
 
 def _run(A, k, budget, tuning, alpha=3.0, beta=4.0):
@@ -85,9 +84,9 @@ def test_grid_cells_on_host():
 @pytest.mark.parametrize("tuning", [False, True])
 def test_spmv_hostdense(tuning):
     """x and y host-resident (DenseVector_um, matrix_um.h:918-1075)."""
-    from sblas_tpu.containers import DenseVector
-    from sblas_tpu.memory import spmv_um_hostdense
-    from sblas_tpu.ops.cpu_reference import spmv_cpu
+    from sblas.containers import DenseVector
+    from sblas.memory import spmv_um_hostdense
+    from sblas.ops.cpu_reference import spmv_cpu
     A = fem_banded_like(n=1800, half_band=12)
     grid = host_resident_grid(A, dtype=jnp.float64,
                               hbm_budget_bytes=64 << 10, k=1)

@@ -8,9 +8,9 @@ import pytest
 import scipy.io
 import scipy.sparse
 
-from sblas_tpu.io import mmio
-from sblas_tpu.containers import CooMatrix, CsrMatrix
-from sblas_tpu.utils.errors import FormatError
+from sblas.io import mmio
+from sblas.containers import CooMatrix, CsrMatrix
+from sblas.utils.errors import FormatError
 
 REFERENCE_ASH85 = "/root/reference/ash85.mtx"
 
@@ -157,7 +157,7 @@ def test_lexsort2_matches_lexsort():
     empty input, and the huge-range fallback path."""
     import numpy as np
 
-    from sblas_tpu.utils.hostmath import lexsort2
+    from sblas.utils.hostmath import lexsort2
 
     rng = np.random.RandomState(0)
     for n, hi in ((0, 10), (1, 1), (1000, 7), (10000, 1000)):
@@ -176,7 +176,7 @@ def test_skew_symmetric_array_file(tmp_path):
     rejected every such file with a length mismatch."""
     import numpy as np
 
-    from sblas_tpu.io.mmio import read_coo
+    from sblas.io.mmio import read_coo
 
     p = tmp_path / "skew.mtx"
     p.write_text("%%MatrixMarket matrix array real skew-symmetric\n"

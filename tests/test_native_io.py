@@ -9,7 +9,7 @@ import time
 import numpy as np
 import pytest
 
-from sblas_tpu.io import mmio, native
+from sblas.io import mmio, native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")
@@ -97,7 +97,7 @@ def test_native_malformed_falls_back(tmp_path):
     p = tmp_path / "trunc.mtx"
     p.write_text("%%MatrixMarket matrix coordinate real general\n"
                  "3 3 3\n1 1 1.0\n")
-    from sblas_tpu.utils.errors import FormatError
+    from sblas.utils.errors import FormatError
     with pytest.raises(FormatError):
         mmio.read_coo(str(p))
 
@@ -107,7 +107,7 @@ def test_native_scatter_bucketed_matches_numpy(dtype):
     """Exercise the radix-bucketed branch of native.scatter (only engages
     above 2^18 elements), including duplicate addresses: the bucketing is
     stable within buckets so numpy's last-write-wins order must hold."""
-    from sblas_tpu.io import native
+    from sblas.io import native
     if not native.available():
         pytest.skip("native library unavailable")
     rng = np.random.RandomState(3)
@@ -124,7 +124,7 @@ def test_native_scatter_bucketed_matches_numpy(dtype):
 def test_native_scatter_scalar_broadcast():
     """Scalar vals broadcast across all addresses (used by the planners to
     flag-fill)."""
-    from sblas_tpu.io import native
+    from sblas.io import native
     out = np.zeros(1000, dtype=np.int32)
     native.scatter(out, np.array([3, 997], dtype=np.int32), 7)
     assert out[3] == 7 and out[997] == 7 and out.sum() == 14

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu import assert_equal
-from sblas_tpu.containers import CsrMatrix, DenseMatrix, DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas import assert_equal
+from sblas.containers import CsrMatrix, DenseMatrix, DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random, webbase_like)
-from sblas_tpu.ops import (CooPlan, EllPlan, axpby, make_plan, plus_scalar,
+from sblas.ops import (CooPlan, EllPlan, axpby, make_plan, plus_scalar,
                            spmm, spmv)
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.ops.spmm import spmm_coo, spmm_ell
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.ops.spmm import spmm_coo, spmm_ell
 
 
 def _operands_vec(A, fill=1.0):
@@ -110,10 +110,10 @@ def test_spmm_ell_k_chunking():
 
 
 def test_plan_heuristic():
-    from sblas_tpu.ops import BsrPlan, WcooPlan
+    from sblas.ops import BsrPlan, WcooPlan
 
-    # tiny (one-MXU-block) matrices go dense outright (r5 chip matrix:
-    # blowup ratios are meaningless at kilobyte scale)
+    # tiny (one-block) matrices go dense outright (blowup ratios are
+    # meaningless at kilobyte scale)
     assert isinstance(make_plan(uniform_random(64, 64, 4, seed=2),
                                 dtype=jnp.float64), BsrPlan)
     # balanced low-degree rows at a scale where BELL padding blows up:
@@ -144,12 +144,12 @@ def test_elementwise_parity():
 
 
 def test_bfloat16_plans_run():
-    """bf16 value storage: supported end-to-end (MXU-native dtype); checked
+    """bf16 value storage: supported end-to-end; checked
     at a bf16-appropriate tolerance rather than the f32/f64 ERROR_BAR."""
     import jax.numpy as jnp
 
-    from sblas_tpu.io.generate import fem_banded_like
-    from sblas_tpu.ops import make_plan, spmm, spmv
+    from sblas.io.generate import fem_banded_like
+    from sblas.ops import make_plan, spmm, spmv
 
     A = fem_banded_like(n=400, half_band=3, dtype=np.float64)
     B = DenseMatrix.random(A.width, 8)

@@ -8,18 +8,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu import assert_equal
-from sblas_tpu.containers import (CsrMatrix, DenseMatrix, DenseVector,
+from sblas import assert_equal
+from sblas.containers import (CsrMatrix, DenseMatrix, DenseVector,
                                   MajorOrder, SharePolicy)
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random)
-from sblas_tpu.ops import make_plan
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.parallel import (make_mesh, pad_to_shards, place_dense,
+from sblas.ops import make_plan
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.parallel import (make_mesh, pad_to_shards, place_dense,
                                 replicate, spmm_mode1, spmm_mode2, spmv_dist,
                                 spmv_halo, sync_to_host)
-from sblas_tpu.partition import partition_nnz_balanced, partition_row_blocks
-from sblas_tpu.utils.errors import PartitionError
+from sblas.partition import partition_nnz_balanced, partition_row_blocks
+from sblas.utils.errors import PartitionError
 
 ALPHA, BETA = 3.0, 4.0
 
@@ -143,18 +143,17 @@ def test_segment_axis_follows_major_order(mesh):
 
 
 def test_spmm_mode1_wcoo_plan():
-    """Mode 1 with a Pallas-kind (wcoo) plan needs the same interpret-
-    mode check_vma opt-out as every other program (it crashed on the
-    CPU test mesh before)."""
+    """Mode 1 with a wcoo plan runs under check_vma=True and matches the
+    oracle."""
     import jax.numpy as jnp
     import numpy as np
 
-    from sblas_tpu.containers import DenseMatrix
-    from sblas_tpu.io.generate import webbase_like
-    from sblas_tpu.ops.cpu_reference import spmm_cpu
-    from sblas_tpu.ops.wcoo import WcooPlan
-    from sblas_tpu.parallel import make_mesh, spmm_mode1, sync_to_host
-    from sblas_tpu.utils.verify import assert_equal
+    from sblas.containers import DenseMatrix
+    from sblas.io.generate import webbase_like
+    from sblas.ops.cpu_reference import spmm_cpu
+    from sblas.ops.wcoo import WcooPlan
+    from sblas.parallel import make_mesh, spmm_mode1, sync_to_host
+    from sblas.utils.verify import assert_equal
 
     A = webbase_like(n=4096, avg_deg=3.0, seed=1, dtype=np.float64)
     plan = WcooPlan.from_csr(A, dtype=jnp.float64)

@@ -5,12 +5,12 @@ metadata — the semantics of the reference's segment path
 import numpy as np
 import pytest
 
-from sblas_tpu.containers import CsrMatrix
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas.containers import CsrMatrix
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random)
-from sblas_tpu.partition import (partition_nnz_balanced, partition_report,
+from sblas.partition import (partition_nnz_balanced, partition_report,
                                  partition_row_blocks)
-from sblas_tpu.utils.errors import PartitionError
+from sblas.utils.errors import PartitionError
 
 
 def _reassemble_dense(segs):

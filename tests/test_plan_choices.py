@@ -1,35 +1,33 @@
-"""Regression-pin make_plan's auto choices per structure class
-(VERDICT r4 next#1's CPU-mesh companion to the chip-measured
-PLAN_MATRIX.md).
+"""Regression-pin make_plan's auto choices per structure class.
 
-The classes are the plan-matrix experiment's, at full experiment size —
-the choice thresholds (routed_min_nnz, blowup limits) are scale-aware,
-so shrunken fixtures would pin different branches.  If a heuristic
-changes deliberately (e.g. the chip matrix shows auto losing >1.15x on a
-class), update the expectation HERE with the measured justification.
+The classes are the plan-matrix experiment's (experiments/plan_matrix.py),
+at full experiment size — the choice thresholds (blowup limits) are
+scale-aware, so shrunken fixtures would pin different branches.  If a
+heuristic changes deliberately, update the expectation HERE with the
+measured justification.
 """
 
 import jax.numpy as jnp
 import pytest
 
 from experiments.plan_matrix import _kind_of, matrix_classes
-from sblas_tpu.ops import make_plan
+from sblas.ops import make_plan
 
-# Every expectation below is the MEASURED winner from the r5 chip matrix
-# (PLAN_MATRIX.md) — auto/best = 1.00x on all twenty cells.
+# The ladder's picks.  Only the two reference workloads are measured on
+# the H100 so far (webbase SpMV: wcoo best of the buildable kinds, routed
+# 4.3x slower; full-size shell SpMM: ell best per call); the other
+# classes pin the ladder until the plan matrix is re-run on the card.
 EXPECTED = {
     # class: (spmv kind, spmm kind)
-    "shell_fem": ("dia", "bsr"),      # spmm: bsr 0.416 vs dia 0.501 ms
-    "web_power": ("routed", "wcoo"),  # power-law web: the spmv headline
-    "dense_band": ("bsr", "bsr"),     # spmv: bsr 0.067 vs dia 0.109 ms
+    "shell_fem": ("dia", "bsr"),
+    "web_power": ("wcoo", "wcoo"),    # power-law web: the spmv headline
+    "dense_band": ("bsr", "bsr"),
     "block_dom": ("bsr", "bsr"),
-    "road_local": ("routed", "bsr"),  # spmm: bsr 2.46 vs wcoo 3.62 at
-                                      # blowup 347 (MXU >> gathers)
-    "uniform": ("routed", "ell"),
-    "rect_wide": ("routed", "ell"),
-    "near_empty": ("coo", "coo"),     # ell mispick was 111x (fixed
-                                      # padded-slot profitability)
-    "skew_rows": ("routed", "wcoo"),
+    "road_local": ("ell", "bsr"),
+    "uniform": ("ell", "ell"),
+    "rect_wide": ("ell", "ell"),
+    "near_empty": ("coo", "coo"),     # ell is unprofitable on padded slots
+    "skew_rows": ("wcoo", "wcoo"),
     "small_sym": ("dia", "bsr"),      # tiny: dense forms outright
 }
 
@@ -48,12 +46,13 @@ def test_auto_choice(matrices, cname):
 
 
 def test_full_shell_spmm_prefers_dia():
-    """The BELL-vs-DIA SpMM crossover is SIZE-dependent (same structure,
-    blowup 24): BELL wins at 148 MB padded (0.416 vs 0.501 ms), DIA wins
-    at 465 MB (1.462 vs 1.716 ms, chip-verified) — guard the bench
-    headline's full-scale choice."""
+    """The SpMM crossover away from BELL is SIZE-dependent (same
+    structure, blowup 24) — guard the bench headline's full-scale
+    choice.  On the H100 the lean form that wins per call is ELL (one-
+    call device time ell 0.40 vs dia 0.50 ms), so ELL is picked where
+    DIA used to be."""
     import numpy as np
 
-    from sblas_tpu.io.generate import fem_shell_like
+    from sblas.io.generate import fem_shell_like
     A = fem_shell_like(dtype=np.float32)
-    assert _kind_of(make_plan(A, dtype=jnp.float32, op="spmm")) == "dia"
+    assert _kind_of(make_plan(A, dtype=jnp.float32, op="spmm")) == "ell"

@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from sblas_tpu.containers import DenseVector
-from sblas_tpu.io.generate import fem_banded_like, uniform_random
-from sblas_tpu.io.plancache import load_plan, save_plan
-from sblas_tpu.ops import make_plan, spmv
-from sblas_tpu.ops.rspmv import RoutedPlan
+from sblas.containers import DenseVector
+from sblas.io.generate import fem_banded_like, uniform_random
+from sblas.io.plancache import load_plan, save_plan
+from sblas.ops import make_plan, spmv
+from sblas.ops.rspmv import RoutedPlan
 
 
 @pytest.mark.parametrize("kind", ["dia", "bsr", "ell", "wcoo", "coo"])
@@ -47,7 +47,7 @@ def test_dtype_guard_rejects_canonicalization(tmp_path):
     fail loudly, not silently downcast (ADVICE r1)."""
     import json
 
-    from sblas_tpu.utils.errors import FormatError
+    from sblas.utils.errors import FormatError
 
     A = fem_banded_like(n=300, half_band=4, dtype=np.float64)
     plan = make_plan(A, dtype=jnp.float64, force="ell")
@@ -97,14 +97,14 @@ def test_load_pre_dtype_record_files(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Distributed / UM containers (VERDICT r2 next#4): the plans that take
+# Distributed / UM containers: the plans that take
 # seconds-to-minutes to build must round-trip, not rebuild per process.
 # ---------------------------------------------------------------------------
 
 def _spmv_oracle_check(run, A, alpha=3.0, beta=4.0):
-    from sblas_tpu.ops.cpu_reference import spmv_cpu
-    from sblas_tpu.parallel import sync_to_host
-    from sblas_tpu.utils.verify import assert_equal
+    from sblas.ops.cpu_reference import spmv_cpu
+    from sblas.parallel import sync_to_host
+    from sblas.utils.verify import assert_equal
     x = DenseVector.random(A.width)
     y = DenseVector.constant(A.height, 1.0)
     got = run(jnp.asarray(x.values), jnp.asarray(y.values))
@@ -113,7 +113,7 @@ def _spmv_oracle_check(run, A, alpha=3.0, beta=4.0):
 
 @pytest.mark.parametrize("kind", ["ell", "coo"])
 def test_roundtrip_row_plan_shards(tmp_path, kind):
-    from sblas_tpu.parallel import (make_mesh, partition_row_plans,
+    from sblas.parallel import (make_mesh, partition_row_plans,
                                     spmv_dist_planned)
     A = fem_banded_like(n=640, half_band=4, dtype=np.float64)
     shards = partition_row_plans(A, 8, dtype=jnp.float64, kind=kind)
@@ -128,8 +128,8 @@ def test_roundtrip_row_plan_shards(tmp_path, kind):
 
 
 def test_roundtrip_routed_shards(tmp_path):
-    from sblas_tpu.config import SBlasConfig
-    from sblas_tpu.parallel import (make_mesh, partition_row_plans,
+    from sblas.config import SBlasConfig
+    from sblas.parallel import (make_mesh, partition_row_plans,
                                     spmv_dist_planned)
     cfg = SBlasConfig(routed_min_nnz=256, routed_min_width=256)
     A = uniform_random(512, 512, 3, seed=5)
@@ -146,7 +146,7 @@ def test_roundtrip_routed_shards(tmp_path):
 
 
 def test_roundtrip_halo_dia_shards(tmp_path):
-    from sblas_tpu.parallel import (make_mesh, partition_halo_dia,
+    from sblas.parallel import (make_mesh, partition_halo_dia,
                                     spmv_halo_planned)
     A = fem_banded_like(n=640, half_band=3, dtype=np.float64)
     shards = partition_halo_dia(A, 8, dtype=jnp.float64)
@@ -160,8 +160,8 @@ def test_roundtrip_halo_dia_shards(tmp_path):
 
 
 def test_roundtrip_xfoot_shards(tmp_path):
-    from sblas_tpu.io.generate import webbase_like
-    from sblas_tpu.parallel import make_mesh, partition_xfoot, spmv_xfoot
+    from sblas.io.generate import webbase_like
+    from sblas.parallel import make_mesh, partition_xfoot, spmv_xfoot
     A = webbase_like(n=8_000, avg_deg=3.0, seed=6, local_scale=150.0,
                      dtype=np.float64)
     shards = partition_xfoot(A, 8, dtype=jnp.float64, kind="coo")
@@ -178,8 +178,8 @@ def test_roundtrip_xfoot_shards(tmp_path):
 def test_roundtrip_host_resident_plan(tmp_path):
     import jax
 
-    from sblas_tpu.memory import host_resident_plan, spmv_um
-    from sblas_tpu.memory.host import _host_sharding
+    from sblas.memory import host_resident_plan, spmv_um
+    from sblas.memory.host import _host_sharding
     A = fem_banded_like(n=512, half_band=4, dtype=np.float64)
     plan = host_resident_plan(A, dtype=jnp.float64,
                               hbm_budget_bytes=64 << 10)
@@ -193,14 +193,14 @@ def test_roundtrip_host_resident_plan(tmp_path):
     y = DenseVector.constant(A.height, 1.0)
     got = spmv_um(plan2, jnp.asarray(x.values), 3.0, 4.0,
                   jnp.asarray(y.values))
-    from sblas_tpu.ops.cpu_reference import spmv_cpu
-    from sblas_tpu.utils.verify import assert_equal
+    from sblas.ops.cpu_reference import spmv_cpu
+    from sblas.utils.verify import assert_equal
     assert_equal(np.asarray(got), spmv_cpu(A, x, 3.0, 4.0, y))
 
 
 def test_roundtrip_host_resident_shards(tmp_path):
-    from sblas_tpu.memory import host_resident_shards, spmv_um_dist
-    from sblas_tpu.parallel import make_mesh
+    from sblas.memory import host_resident_shards, spmv_um_dist
+    from sblas.parallel import make_mesh
     A = uniform_random(512, 512, 3, seed=7)
     hs = host_resident_shards(A, 8, dtype=jnp.float64,
                               hbm_budget_bytes=64 << 10)
@@ -220,10 +220,10 @@ def test_schema_drift_raises_format_error(tmp_path):
     TypeError — bench and CLIs key rebuild fallbacks on this."""
     import json
 
-    from sblas_tpu.io.generate import fem_banded_like
-    from sblas_tpu.io.plancache import load_plan, save_plan
-    from sblas_tpu.ops import make_plan
-    from sblas_tpu.utils.errors import FormatError
+    from sblas.io.generate import fem_banded_like
+    from sblas.io.plancache import load_plan, save_plan
+    from sblas.ops import make_plan
+    from sblas.utils.errors import FormatError
 
     A = fem_banded_like(n=256, half_band=4)
     p = make_plan(A, dtype=jnp.float64, force="coo")

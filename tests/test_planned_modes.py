@@ -4,15 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu.containers import DenseMatrix, DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas.containers import DenseMatrix, DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random, webbase_like)
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.parallel import (make_mesh, partition_halo_dia,
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.parallel import (make_mesh, partition_halo_dia,
                                 partition_row_plans, spmm_mode2_planned,
                                 spmv_dist_planned, spmv_halo_planned,
                                 sync_to_host)
-from sblas_tpu.utils.verify import assert_equal
+from sblas.utils.verify import assert_equal
 
 N_DEV = 8
 
@@ -85,7 +85,7 @@ def test_default_kind_selection(ragged):
 
 
 def test_default_kind_skew_no_ell_blowup(mesh):
-    """kind=None on a power-law matrix must NOT pick ELL (VERDICT weak#1:
+    """kind=None on a power-law matrix must NOT pick ELL (a
     band_rows x max_row_nnz allocation) — it falls back to COO segments,
     and the result still verifies."""
     A = adversarial_skew(m=4096, n=4096, heavy_rows=4, heavy_nnz=2048,
@@ -105,8 +105,8 @@ def test_default_kind_skew_no_ell_blowup(mesh):
 
 @pytest.mark.parametrize("reduce", ["psum", "psum_scatter"])
 def test_spmv_dist_planned_routed(mesh, reduce):
-    """Distributed SpMV rides per-shard RoutedPlans (VERDICT next#2)."""
-    from sblas_tpu.config import SBlasConfig
+    """Distributed SpMV rides per-shard RoutedPlans."""
+    from sblas.config import SBlasConfig
     cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
     A = uniform_random(1500, 1024, nnz_per_row=4, seed=3, dtype=np.float64)
     shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed",
@@ -121,21 +121,21 @@ def test_spmv_dist_planned_routed(mesh, reduce):
 
 
 def test_routed_heuristic_needs_spmv_op():
-    """kind=None picks routed only under op='spmv' (RoutedPlan is
-    SpMV-only); without it the safe COO fallback is chosen."""
-    from sblas_tpu.config import SBlasConfig
+    """kind=None never picks routed, under op='spmv' or not (like
+    make_plan's ladder); the COO-family fallback is chosen instead."""
+    from sblas.config import SBlasConfig
     cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
     A = adversarial_skew(m=1500, n=1024, heavy_rows=2, heavy_nnz=512,
                          seed=3, dtype=np.float64)
     assert partition_row_plans(A, 4, kind=None, op="spmv",
-                               config=cfg).kind == "routed"
+                               config=cfg).kind in ("wcoo", "coo")
     assert partition_row_plans(A, 4, kind=None,
                                config=cfg).kind in ("wcoo", "coo")
 
 
 def test_routed_shards_reject_spmm(mesh):
-    from sblas_tpu.config import SBlasConfig
-    from sblas_tpu.utils.errors import PartitionError
+    from sblas.config import SBlasConfig
+    from sblas.utils.errors import PartitionError
     cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
     A = uniform_random(1500, 1024, nnz_per_row=4, seed=3, dtype=np.float64)
     shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed",
@@ -177,7 +177,7 @@ def test_spmv_dist_planned_wcoo(mesh):
 def test_spmm_halo_planned(mesh, banded, alpha, beta):
     """Halo-exchange SpMM: neighbor B row blocks over the ring — backs the
     scaling report's spmm halo projection with a real mode."""
-    from sblas_tpu.parallel import spmm_halo_planned
+    from sblas.parallel import spmm_halo_planned
     shards = partition_halo_dia(banded, N_DEV, dtype=jnp.float64)
     B = DenseMatrix.random(banded.width, 7)
     C = DenseMatrix.constant(banded.height, 7, 1.0)

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from sblas_tpu.ops.route import (apply_route, apply_route_np, build_route,
+from sblas.ops.route import (apply_route, apply_route_np, build_route,
                                  edge_color, routable_size,
                                  route_tables_device, _edge_color_py)
 
@@ -57,7 +57,7 @@ def test_route_numpy_executor(rng, n):
 
 @pytest.mark.parametrize("n", [128, 300, 16384, 50000])
 def test_route_device_executor(rng, n):
-    """Device executor (Pallas interpret mode on the CPU mesh) matches."""
+    """Device executor (XLA row-local gathers) matches."""
     perm = rng.permutation(n)
     prog = build_route(perm)
     tables = route_tables_device(prog)
@@ -81,7 +81,7 @@ def test_fast_halve_coloring_is_proper(rng, monkeypatch):
     engages above ~1M edges; SBLAS_COLOR_FASTMIN=1 forces it for every
     group so its validity is CI-covered, including the phase-1 race and
     self-mirror serial fallbacks at small scale."""
-    from sblas_tpu.io import native
+    from sblas.io import native
     if not native.available():
         pytest.skip("native library unavailable")
     monkeypatch.setenv("SBLAS_COLOR_FASTMIN", "1")
@@ -98,7 +98,7 @@ def test_route_correct_under_forced_fast_halve(rng, n, monkeypatch):
     """End-to-end route built with the fast-path coloring forced on for
     every block still computes out[i] = in[perm[i]] (exercises the blocked
     entry point + fast_halve together)."""
-    from sblas_tpu.io import native
+    from sblas.io import native
     if not native.available():
         pytest.skip("native library unavailable")
     monkeypatch.setenv("SBLAS_COLOR_FASTMIN", "1")
@@ -113,8 +113,8 @@ def test_edge_color_honors_no_native_env(monkeypatch):
     path (ADVICE r1: route.py bypassed the kill switch)."""
     import numpy as np
 
-    from sblas_tpu.io import native
-    from sblas_tpu.ops.route import edge_color
+    from sblas.io import native
+    from sblas.ops.route import edge_color
 
     monkeypatch.setenv("SBLAS_NO_NATIVE", "1")
     assert not native.available()
@@ -148,8 +148,8 @@ def test_native_level_matches_numpy_tables():
     import numpy as np
     import pytest
 
-    from sblas_tpu.io import native
-    from sblas_tpu.ops.route import build_route
+    from sblas.io import native
+    from sblas.ops.route import build_route
 
     if not native.available():
         pytest.skip("native library unavailable")

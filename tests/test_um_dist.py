@@ -1,20 +1,20 @@
 """Multi-device UM ops: host-resident sparse A under the v1/v2 strategies
 on the virtual CPU mesh (reference spmm_um.h:163-284, spmv_um.h:35-139 —
-the UM ops ARE the multi-GPU drivers; VERDICT r1 missing#2)."""
+the UM ops ARE the multi-GPU drivers)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu import assert_equal
-from sblas_tpu.containers import DenseMatrix, DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas import assert_equal
+from sblas.containers import DenseMatrix, DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    webbase_like)
-from sblas_tpu.memory import (host_resident_plan, host_resident_shards,
+from sblas.memory import (host_resident_plan, host_resident_shards,
                               spmm_um_dist, spmm_um_mode1, spmv_um_dist)
-from sblas_tpu.ops.cpu_reference import spmm_cpu, spmv_cpu
-from sblas_tpu.parallel import make_mesh, sync_to_host
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.parallel import make_mesh, sync_to_host
 
 N_DEV = 8
 

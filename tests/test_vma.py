@@ -1,16 +1,13 @@
 """shard_map varying-manual-axes typechecking coverage.
 
-The framework's goal is check_vma=True on every compiled-TPU program
-(VERDICT r2 next#7, r3 next#4).  Two facts are pinned here:
+Every shard program runs with check_vma=True.  Two facts are pinned here
+on the 8-device CPU mesh:
 
-* `vma_check_ok` opts out ONLY for Pallas kinds under interpret mode
-  (the CPU test mesh), where Pallas' own block extraction dynamic-slices
-  by grid index and trips the checker regardless of program soundness.
-* The COMPILED path (interpret=False) of every Pallas kind traces clean
-  under check_vma=True.  vma checking happens at shard_map trace time,
-  so the compiled path is exercised on the CPU mesh by forcing the
-  kernels' `interpret=` guards off via a patched `jax.default_backend`
-  inside `jax.eval_shape` (no Mosaic lowering happens at trace time).
+* the unstructured kinds' shard programs trace under check_vma=True
+  (vma checking happens at shard_map trace time, so `jax.eval_shape`
+  suffices);
+* every plan kind also executes under check_vma=True through the planned
+  mode-2 entry points and matches the CPU oracle.
 """
 
 import jax
@@ -19,10 +16,13 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from sblas_tpu.io.generate import webbase_like
-from sblas_tpu.parallel.mesh import make_mesh, vma_check_ok
-from sblas_tpu.parallel.planned import (_local_spmm, _local_spmv, _unstack,
-                                        partition_row_plans)
+from sblas.containers import DenseMatrix, DenseVector
+from sblas.io.generate import fem_banded_like, webbase_like
+from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+from sblas.parallel.mesh import make_mesh
+from sblas.parallel.planned import (_local_spmm, _local_spmv, _unstack,
+                                    partition_row_plans, spmm_mode2_planned,
+                                    spmv_dist_planned)
 
 N_DEV = 8
 
@@ -37,24 +37,11 @@ def A():
     return webbase_like(n=4096, avg_deg=3.0, seed=1, dtype=np.float64)
 
 
-def test_vma_check_ok_matrix(monkeypatch):
-    """Pallas kinds opt out under interpret only; everything else is
-    always checked."""
-    for kind in ("bsr", "ell", "dia", "coo"):
-        assert vma_check_ok(kind)
-    on_cpu = jax.default_backend() != "tpu"
-    assert vma_check_ok("routed") == (not on_cpu)
-    assert vma_check_ok("wcoo") == (not on_cpu)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert vma_check_ok("routed") and vma_check_ok("wcoo")
-
-
 @pytest.mark.parametrize("kind,op", [("wcoo", "spmm"), ("wcoo", "spmv"),
                                      ("routed", "spmv")])
-def test_compiled_path_traces_with_check_vma(mesh, A, kind, op,
-                                             monkeypatch):
-    """The compiled-TPU lowering of every Pallas kind must typecheck
-    under check_vma=True — no silent vma opt-out on real hardware."""
+def test_compiled_path_traces_with_check_vma(mesh, A, kind, op):
+    """The unstructured kinds' shard programs typecheck under
+    check_vma=True."""
     shards = partition_row_plans(
         A, N_DEV, dtype=jnp.float64, kind=kind,
         op=("spmv" if kind == "routed" else None))
@@ -69,26 +56,33 @@ def test_compiled_path_traces_with_check_vma(mesh, A, kind, op,
     out_spec = P("shards", None) if op == "spmm" else P("shards")
     prog = jax.shard_map(fn, mesh=mesh, in_specs=(P("shards"), P()),
                          out_specs=out_spec, check_vma=True)
-    # trace the COMPILED kernels (interpret guards consult the backend);
-    # eval_shape only traces, so no Mosaic compile is attempted
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     out = jax.eval_shape(prog, shards, operand)
     rows = shards.band_rows * N_DEV
     assert out.shape == ((rows, 16) if op == "spmm" else (rows,))
 
 
-def test_interpret_execution_matches_oracle_unchecked(mesh, A):
-    """The interpret path (check_vma as vma_check_ok says: off) still
-    computes the right numbers on the CPU mesh — the opt-out loses the
-    typecheck, not correctness coverage."""
-    from sblas_tpu.containers import DenseVector
-    from sblas_tpu.ops.cpu_reference import spmv_cpu
-    from sblas_tpu.parallel.planned import spmv_dist_planned
-
-    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="wcoo")
-    x = DenseVector.random(A.width, dtype=np.float64)
-    y = DenseVector.constant(A.height, 1.0, dtype=np.float64)
-    out = spmv_dist_planned(shards, jnp.asarray(x.values), 2.0, 3.0,
-                            jnp.asarray(y.values), mesh)
-    want = spmv_cpu(A, x, 2.0, 3.0, y)
+@pytest.mark.parametrize("kind,op", [("dia", "spmv"), ("bsr", "spmm"),
+                                     ("ell", "spmm"), ("coo", "spmv"),
+                                     ("wcoo", "spmv"), ("routed", "spmv")])
+def test_every_kind_runs_with_check_vma(mesh, kind, op):
+    """Each plan kind executes inside a check_vma=True shard program and
+    matches the oracle (a banded matrix for the dense-band kinds, a web
+    proxy for the gather kinds)."""
+    A = (fem_banded_like(n=2048, half_band=4, dtype=np.float64)
+         if kind in ("dia", "bsr")
+         else webbase_like(n=4096, avg_deg=3.0, seed=1, dtype=np.float64))
+    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind=kind,
+                                 op=op)
+    if op == "spmv":
+        x = DenseVector.random(A.width, dtype=np.float64)
+        y = DenseVector.constant(A.height, 1.0, dtype=np.float64)
+        out = spmv_dist_planned(shards, jnp.asarray(x.values), 2.0, 3.0,
+                                jnp.asarray(y.values), mesh)
+        want = spmv_cpu(A, x, 2.0, 3.0, y)
+    else:
+        B = DenseMatrix.random(A.width, 8, dtype=np.float64)
+        C = DenseMatrix.constant(A.height, 8, 1.0, dtype=np.float64)
+        out = spmm_mode2_planned(shards, jnp.asarray(B.values), 2.0, 3.0,
+                                 jnp.asarray(C.values), mesh)
+        want = spmm_cpu(A, B, 2.0, 3.0, C)
     np.testing.assert_allclose(np.asarray(out), want, rtol=1e-9, atol=1e-9)

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas_tpu.config import SBlasConfig
-from sblas_tpu.containers import DenseVector
-from sblas_tpu.io.generate import (adversarial_skew, fem_banded_like,
+from sblas.config import SBlasConfig
+from sblas.containers import DenseVector
+from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random, webbase_like)
-from sblas_tpu.ops.cpu_reference import spmv_cpu
-from sblas_tpu.parallel import (make_mesh, partition_xfoot, spmv_xfoot,
+from sblas.ops.cpu_reference import spmv_cpu
+from sblas.parallel import (make_mesh, partition_xfoot, spmv_xfoot,
                                 sync_to_host, xfoot_stats)
-from sblas_tpu.utils.verify import assert_equal
+from sblas.utils.verify import assert_equal
 
 N_DEV = 8
 
@@ -122,7 +122,7 @@ def test_stats_cheap_and_consistent():
 
 
 def test_single_shard():
-    from sblas_tpu.parallel import make_mesh as mm
+    from sblas.parallel import make_mesh as mm
     A = uniform_random(300, 300, nnz_per_row=3, seed=2, dtype=np.float64)
     x = DenseVector.random(A.width)
     y = DenseVector.constant(A.height, 1.0)
@@ -138,7 +138,7 @@ def test_forced_hot_qmin_flat_oracle(mesh):
     packets; the flat extraction engine expresses that and stays
     oracle-correct, while the routed engine (a permutation network)
     must refuse rather than build a non-bijective map."""
-    from sblas_tpu.utils.errors import PartitionError
+    from sblas.utils.errors import PartitionError
 
     A = webbase_like(n=20_000, avg_deg=3.0, seed=3, local_scale=200.0,
                      dtype=np.float64)
@@ -171,7 +171,7 @@ def test_nocomm_twin_shapes_and_local_band(mesh):
     BANDED matrix whose shard 0 happens to reference only its own block
     agrees exactly on that band (remote-dependent rows are timing-only
     garbage by contract)."""
-    from sblas_tpu.parallel import spmv_xfoot_nocomm
+    from sblas.parallel import spmv_xfoot_nocomm
     A = fem_banded_like(n=1024, half_band=5, dtype=np.float64)
     shards = partition_xfoot(A, N_DEV, dtype=jnp.float64)
     x = DenseVector.random(A.width)
