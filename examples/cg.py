@@ -88,8 +88,7 @@ def main() -> int:
         from sblas.parallel import (make_mesh, partition_row_plans,
                                         spmv_dist_planned)
         mesh = make_mesh(args.dist)
-        shards = partition_row_plans(A, mesh.shape["shards"], dtype=jdt,
-                                     op="spmv")
+        shards = partition_row_plans(A, mesh.shape["shards"], dtype=jdt)
         print(f"distributed over {mesh.shape['shards']} device(s), "
               f"kind={shards.kind}")
 

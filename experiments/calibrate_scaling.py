@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Calibrate the scaling model's device constants.
+"""Calibrate the device data-movement prices of the xfoot planner.
 
 `scaling.GATHER_NS` and `scaling.ROUTE_NS` price the xfoot extraction
-engines (parallel/xfoot.py) and ride into every scaling projection.
-This script measures both at three sizes each on the device (two-point
+engines (parallel/xfoot.py).  This script measures both at three sizes each on the device (two-point
 estimator) and writes `scaling_calib.json` at the repo root, with the
 device kind in its record; `scaling.py` loads it and reports the
 constants' provenance.

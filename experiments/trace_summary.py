@@ -48,7 +48,14 @@ def summarize(trace_dir: str) -> dict:
             pids[e["pid"]] = e["args"]["name"]
         if e.get("ph") == "M" and e.get("name") == "thread_name":
             tids[(e["pid"], e["tid"])] = e["args"]["name"]
-    dev_pid = next((p for p, n in pids.items() if "/device:" in n), None)
+    dev_pids = {p for p, n in pids.items() if "/device:" in n}
+    # device op events: the "XLA Ops" line where the backend has one,
+    # else the GPU's per-stream lines ("Stream #N(...)")
+    dev_tids = {k for k, n in tids.items()
+                if k[0] in dev_pids and n == "XLA Ops"}
+    if not dev_tids:
+        dev_tids = {k for k, n in tids.items()
+                    if k[0] in dev_pids and n.startswith("Stream")}
     name = os.path.basename(trace_dir.rstrip("/"))
     xs = [e for e in ev if e.get("ph") == "X"]
     # wall = full event span: the named scope's own duration can end
@@ -70,8 +77,7 @@ def summarize(trace_dir: str) -> dict:
                           - min(e["ts"] for e in pe))
     wall_us = max(scope["dur"] if scope else 0, span_us)
 
-    dev_ops = [e for e in xs if e.get("pid") == dev_pid
-               and tids.get((dev_pid, e["tid"])) == "XLA Ops"]
+    dev_ops = [e for e in xs if (e.get("pid"), e.get("tid")) in dev_tids]
     # overlap-aware busy time: merge [ts, ts+dur) intervals
     ivs = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in dev_ops)
     busy = 0.0
@@ -87,7 +93,7 @@ def summarize(trace_dir: str) -> dict:
         busy += cur_e - cur_s
 
     xfer_us = sum(e.get("dur", 0) for e in xs
-                  if e.get("pid") != dev_pid
+                  if e.get("pid") not in dev_pids
                   and any(e["name"].startswith(p) for p in _XFER_HOST))
     top = collections.Counter()
     for e in dev_ops:
@@ -99,8 +105,9 @@ def summarize(trace_dir: str) -> dict:
         "device_busy_frac": busy / wall_us if wall_us else 0.0,
         "host_transfer_dispatch_ms": xfer_us / 1e3,
         "n_device_ops": len(dev_ops),
-        "top_device_ops": [(n, round(d / 1e3, 3))
+        "top_device_ops": [(n, round(d / 1e3, 4))
                            for n, d in top.most_common(8)],
+        "device_threads": sorted(tids[k] for k in dev_tids),
     }
 
 

@@ -143,7 +143,7 @@ def main(argv=None) -> int:
             print(partition_report(segs))
         elif mode == "distp":
             shards = cached(lambda: partition_row_plans(
-                A, n, dtype=jnp_dtype, op="spmv", config=cfg))
+                A, n, dtype=jnp_dtype, config=cfg))
             print(f"per-shard plans: kind={shards.kind}, "
                   f"band_rows={shards.band_rows}")
         elif mode == "halo":
@@ -168,7 +168,7 @@ def main(argv=None) -> int:
                     f"--slices {slices} does not divide {n} devices")
             mesh2 = make_mesh2(slices, n // slices)
             shards = cached(lambda: partition_row_plans(
-                A, n, dtype=jnp_dtype, op="spmv", config=cfg))
+                A, n, dtype=jnp_dtype, config=cfg))
             print(f"hier {slices}x{n // slices}: per-shard plans "
                   f"kind={shards.kind}")
         else:

@@ -65,12 +65,6 @@ class SBlasConfig:
     dia_max_diags: int = 512
     dia_blowup_limit: float = 3.0
 
-    # Routed-SpMV guards: minimum problem size for the three-stage routed
-    # engine (plan-time edge coloring costs seconds; slab buckets need a
-    # wide x to fill).
-    routed_min_nnz: int = 262_144
-    routed_min_width: int = 65_536
-
     # Hub-column peel threshold for the routed engine: columns with at
     # least this many nonzeros bypass the slab-bucket gather (their
     # entries fill whole 128-lane rows that broadcast one x value — a
@@ -142,8 +136,6 @@ class SBlasConfig:
                        _i("SBLAS_BSR_BLOCK_C", BLOCK_DIM)),
             dia_max_diags=_i("SBLAS_DIA_MAX_DIAGS", 512),
             dia_blowup_limit=_f("SBLAS_DIA_BLOWUP_LIMIT", 3.0),
-            routed_min_nnz=_i("SBLAS_ROUTED_MIN_NNZ", 262_144),
-            routed_min_width=_i("SBLAS_ROUTED_MIN_WIDTH", 65_536),
             routed_peel_threshold=_i("SBLAS_ROUTED_PEEL", 128),
             routed_relabel=os.environ.get("SBLAS_ROUTED_RELABEL",
                                           "1") != "0",

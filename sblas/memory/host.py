@@ -291,11 +291,9 @@ def build_band_plan(sub: CsrMatrix, kind: str, dim: int, band_rows: int,
         from ..ops.wcoo import WcooPlan, wcoo_arrays
         r = wcoo_arrays(sub, min_tiles=dim)
         return WcooPlan(
-            xblk=put(r["xblk"]), lane=put(r["lane"]),
+            cols=put(r["cols"]), rows=put(r["rows"]),
             vals=put(r["vals"].astype(np_val_dtype)),
-            relrow=put(r["relrow"]), half_ids=put(r["half_ids"]),
-            shape=(band_rows, n), nnz=total_nnz, n_tiles=r["n_tiles"],
-            n_row_blocks=r["n_row_blocks"])
+            shape=(band_rows, n), nnz=total_nnz, n_tiles=r["n_tiles"])
     if kind == "coo":
         from ..ops.plans import CooPlan
         coo = sub.to_coo()

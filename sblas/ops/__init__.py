@@ -41,8 +41,9 @@ _BSR_SPMM_BYTES_CAP = 1 << 30
 # SpMM-side crossover from BELL to a lean form: BELL is HBM-bound on
 # padded bytes, so a large padded BELL loses to ELL (balanced rows) or
 # DIA while a small one wins.  On an H100 the shell proxy (465 MB of
-# padded BELL) ran ell 0.40, dia 0.50, bsr 1.11 ms of device time per
-# call (one-call profiler trace); the bound itself is unmeasured there.
+# padded BELL, K=64) runs ell fastest, then dia, with bsr near 2x slower
+# (chip_smoke.py phase c, wall median per call); the bound itself is
+# unmeasured there.
 _BSR_DIA_SPMM_BYTES = 256 << 20
 
 # SpMV-side BELL-vs-DIA crossover: DIA SpMV is pass-count-bound (one
@@ -60,7 +61,7 @@ def make_plan(A, dtype=None, config=DEFAULT, force=None, op=None):
     (shift-and-FMA) when banded — except low-blowup BELL, which beats
     DIA's per-diagonal passes; then BELL / ELL / windowed-COO / COO.  The
     routed engine is never auto-chosen: on the H100 its SpMV on the
-    webbase proxy measured 4.6x slower (device time) than windowed COO.
+    webbase proxy is slower than windowed COO (chip_smoke.py phase c).
     SpMM / mixed ladder: BELL (batched dense block matmuls) whenever its
     padding fits the caps — ELL or DIA instead on banded structure once
     that padding is large — then DIA, ELL, windowed-COO, plain COO as

@@ -555,15 +555,6 @@ class RoutedPlan:
             n_blocks=n_blocks, n_rank_pad=m_padr, merged=merged,
             route_n=prog.n, unrank_n=prog2.n, transport=transport)
 
-    @classmethod
-    def is_profitable(cls, A: CsrMatrix,
-                      config: SBlasConfig = DEFAULT) -> bool:
-        """Routing pays off for large unstructured matrices: enough nnz to
-        amortize the fixed stage costs and a wide enough x for the slab
-        buckets to fill."""
-        return (A.nnz >= config.routed_min_nnz
-                and A.shape[1] >= config.routed_min_width)
-
 
 # ---------------------------------------------------------------------------
 # Kernels

@@ -2,10 +2,11 @@
 
 nnz are tiled TILE-at-a-time in CSR order; the planner assigns each tile
 a 128-aligned row *window* of depth WINDOW that contains all its rows
-(tiles are split when empty-row gaps would overflow the window), so every
-tile's rows are `window start + relrow`.  Each op gathers x (or whole B
-rows) per slot, scales by the value, and reduces into rows with one
-`segment_sum`.  Pad slots carry value 0 and add nothing.
+(tiles are split when empty-row gaps would overflow the window).  The
+plan stores each slot's column, destination row and value; each op
+gathers x (or whole B rows) per slot, scales by the value, and reduces
+into rows with one `segment_sum`.  Pad slots carry value 0 and add
+nothing.
 
 The layout was designed for hardware without a fast elementwise gather or
 scatter, where the window bound let a one-hot matrix product stand in for
@@ -31,36 +32,27 @@ TILE = 512          # nnz per tile
 WINDOW = 256        # row-window depth (two 128 blocks)
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 @partial(jax.tree_util.register_dataclass,
-         data_fields=["xblk", "lane", "vals", "relrow", "half_ids"],
-         meta_fields=["shape", "nnz", "n_tiles", "n_row_blocks"])
+         data_fields=["cols", "rows", "vals"],
+         meta_fields=["shape", "nnz", "n_tiles"])
 @dataclasses.dataclass(frozen=True)
 class WcooPlan:
-    """Windowed COO layout (see module docstring).
+    """Windowed COO layout (see module docstring), T = n_tiles.
 
-    xblk: (T*TILE,) i32   column block id of each nnz (col // 128)
-    lane: (T*TILE,) i32   lane within the block (col % 128)
-    vals: (T*TILE,)       values (padding slots are 0)
-    relrow: (T, TILE) i32 row - window_start, in [0, WINDOW)
-    half_ids: (2T,) i32   destination row-block id of each window half,
-                          in tile order (windows are monotone in CSR
-                          order); the window start of tile t is
-                          half_ids[2t] * 128
+    cols: (T*TILE,) i32   column of each slot
+    rows: (T*TILE,) i32   destination row of each slot; inside a tile all
+                          rows lie in one 128-aligned window of depth
+                          WINDOW, and window starts are monotone in tile
+                          order (pad slots sit at their window's start)
+    vals: (T*TILE,)       values (pad slots are 0)
     """
 
-    xblk: jax.Array
-    lane: jax.Array
+    cols: jax.Array
+    rows: jax.Array
     vals: jax.Array
-    relrow: jax.Array
-    half_ids: jax.Array
     shape: Tuple[int, int]
     nnz: int
     n_tiles: int
-    n_row_blocks: int
 
     @property
     def fill_ratio(self) -> float:
@@ -78,31 +70,32 @@ class WcooPlan:
         np_val = np.dtype(jnp.dtype(dtype).name)
         arr = wcoo_arrays(A, min_tiles=min_tiles)
         return cls(
-            xblk=jnp.asarray(arr["xblk"], jnp.int32),
-            lane=jnp.asarray(arr["lane"], jnp.int32),
+            cols=jnp.asarray(arr["cols"], jnp.int32),
+            rows=jnp.asarray(arr["rows"], jnp.int32),
             vals=jnp.asarray(arr["vals"].astype(np_val), dtype),
-            relrow=jnp.asarray(arr["relrow"], jnp.int32),
-            half_ids=jnp.asarray(arr["half_ids"], jnp.int32),
-            shape=A.shape, nnz=A.nnz, n_tiles=arr["n_tiles"],
-            n_row_blocks=arr["n_row_blocks"])
+            shape=A.shape, nnz=A.nnz, n_tiles=arr["n_tiles"])
+
+
+def _tile_starts(rows: np.ndarray) -> list:
+    """Greedy tiling of CSR-ordered entries: <= TILE entries per tile, all
+    rows inside the 128-aligned window of depth WINDOW anchored at the
+    tile's first row.  Returns the first entry of every tile."""
+    # limit[i]: first j whose row leaves the window anchored at i
+    anchors = ((rows >> 7) + WINDOW // 128) * 128
+    limit = np.searchsorted(rows, anchors, side="left")
+    starts, i = [], 0
+    while i < len(rows):
+        starts.append(i)
+        i = min(i + TILE, int(limit[i]))
+    return starts
 
 
 def wcoo_tile_count(A: CsrMatrix) -> int:
-    """Natural tile count of the windowed-COO layout — just the greedy
-    tiling loop, no array construction (the cheap probe the band layers
-    use for shared static dims; a full wcoo_arrays pass here would double
-    plan-build cost)."""
+    """Natural tile count of the windowed-COO layout — just the tiling,
+    no array construction (the cheap probe the band layers use for
+    shared static dims)."""
     rows = np.repeat(np.arange(A.shape[0], dtype=np.int64), A.row_nnz)
-    nnz = A.nnz
-    if not nnz:
-        return 1
-    anchors = ((rows >> 7) + WINDOW // 128) * 128
-    limit = np.searchsorted(rows, anchors, side="left")
-    count, i = 0, 0
-    while i < nnz:
-        count += 1
-        i = min(i + TILE, int(limit[i]))
-    return count
+    return max(len(_tile_starts(rows)), 1)
 
 
 def wcoo_arrays(A: CsrMatrix, min_tiles: int = 0) -> dict:
@@ -110,92 +103,50 @@ def wcoo_arrays(A: CsrMatrix, min_tiles: int = 0) -> dict:
     callers control placement — device HBM for single-chip plans, pinned
     host for the UM-analog band streamer)."""
     coo = A.to_coo()  # CSR order: rows ascending
-    return _wcoo_layout(coo.row_idx, coo.col_idx, coo.values, A.shape[0],
-                        min_tiles)
-
-
-def _wcoo_layout(rows: np.ndarray, col_ids: np.ndarray,
-                 values: np.ndarray, m: int, min_tiles: int = 0) -> dict:
-    """Tile one entry class (rows must be ascending; `col_ids` may be
-    VIRTUAL ids past the padded width — kept for layout experiments)."""
+    rows, col_ids, values = coo.row_idx, coo.col_idx, coo.values
     nnz = len(rows)
-
-    # --- greedy tiling: <= TILE nnz per tile, all rows inside the
-    # 128-aligned window of depth WINDOW anchored at the tile's first row
-    if nnz:
-        # limit[i]: first j whose row leaves the window anchored at i
-        anchors = ((rows >> 7) + WINDOW // 128) * 128
-        limit = np.searchsorted(rows, anchors, side="left")
-        starts = []
-        i = 0
-        while i < nnz:
-            starts.append(i)
-            i = min(i + TILE, int(limit[i]))
-        starts = np.asarray(starts, dtype=np.int64)
-    else:
-        starts = np.zeros(1, dtype=np.int64)
+    starts = np.asarray(_tile_starts(rows) or [0], dtype=np.int64)
     T_real = len(starts)
     T = max(T_real, int(min_tiles))
     ends = np.concatenate([starts[1:], [nnz]])
     counts = np.pad(ends - starts, (0, T - T_real))
 
-    # --- scatter nnz into (T, TILE) slots
+    # --- scatter nnz into (T, TILE) slots; pad slots point at their
+    # tile's window start
     slot_tile = np.repeat(np.arange(T), counts)
     slot_pos = np.arange(nnz) - np.repeat(starts, counts[:T_real])
-    vals = np.zeros((T, TILE), dtype=values.dtype)
-    xblk = np.zeros((T, TILE), dtype=np.int64)
-    lane = np.zeros((T, TILE), dtype=np.int64)
-    relrow = np.zeros((T, TILE), dtype=np.int64)
     window = np.zeros(T, dtype=np.int64)
     if nnz:
         window[:T_real] = (rows[starts] // 128) * 128
         # pad tiles (min_tiles) anchor at the LAST real window, keeping
         # the tile->window sequence monotone
         window[T_real:] = window[T_real - 1]
+    vals = np.zeros((T, TILE), dtype=values.dtype)
+    cols = np.zeros((T, TILE), dtype=np.int64)
+    slot_rows = np.repeat(window[:, None], TILE, axis=1)
+    if nnz:
         vals[slot_tile, slot_pos] = values
-        xblk[slot_tile, slot_pos] = col_ids >> 7
-        lane[slot_tile, slot_pos] = col_ids & 127
-        relrow[slot_tile, slot_pos] = rows - window[slot_tile]
-    assert relrow.max(initial=0) < WINDOW
-
-    # --- two 128-row halves per tile, in tile order (see the dataclass
-    # docstring)
-    half_ids = np.stack([window // 128, window // 128 + 1],
-                        axis=1).reshape(-1)          # (2T,)
-    m_pad = _round_up(max(m, 1), 128)
-    n_row_blocks = m_pad // 128 + 1  # +1: windows may overhang the edge
+        cols[slot_tile, slot_pos] = col_ids
+        slot_rows[slot_tile, slot_pos] = rows
+    assert (slot_rows - window[:, None]).max(initial=0) < WINDOW
 
     return {
-        "xblk": xblk.reshape(-1).astype(np.int32),
-        "lane": lane.reshape(-1).astype(np.int32),
+        "cols": cols.reshape(-1).astype(np.int32),
+        "rows": slot_rows.reshape(-1).astype(np.int32),
         "vals": vals.reshape(-1),
-        "relrow": relrow.astype(np.int32),
-        "half_ids": half_ids.astype(np.int32),
         "n_tiles": T,
-        "n_row_blocks": n_row_blocks,
     }
-
-
-def _slot_rows(plan: WcooPlan) -> jax.Array:
-    """(T*TILE,) destination row of every slot (pad slots hit their
-    tile's window start with value 0).  Not sorted — pad slots follow
-    each tile's real entries — so the reduce is an unsorted scatter-add,
-    and its summation order varies between runs on the GPU."""
-    start = plan.half_ids[0::2] * 128
-    return (start[:, None] + plan.relrow).reshape(-1)
-
-
-def _slot_cols(plan: WcooPlan) -> jax.Array:
-    return plan.xblk * 128 + plan.lane
 
 
 @jax.jit
 def spmv_wcoo(plan: WcooPlan, x: jax.Array, alpha, beta,
               y: jax.Array) -> jax.Array:
-    m = plan.shape[0]
-    contrib = plan.vals * jnp.take(x, _slot_cols(plan), axis=0)
-    ax = jax.ops.segment_sum(contrib, _slot_rows(plan),
-                             num_segments=plan.n_row_blocks * 128)[:m]
+    # pad slots follow each tile's real entries, so the rows are not
+    # sorted: an unsorted scatter-add, whose summation order varies
+    # between runs on the GPU
+    contrib = plan.vals * jnp.take(x, plan.cols, axis=0)
+    ax = jax.ops.segment_sum(contrib, plan.rows,
+                             num_segments=plan.shape[0])
     return beta * y + alpha * ax
 
 
@@ -213,15 +164,12 @@ def spmm_wcoo(plan: WcooPlan, B: jax.Array, alpha, beta, C: jax.Array,
     """SpMM with the same layout: whole B rows per slot, one scatter-add
     into C rows per K-chunk."""
     m, k = plan.shape[0], B.shape[1]
-    cols = _slot_cols(plan)
-    rows = _slot_rows(plan)
     T = plan.n_tiles
     kc = k_chunk or max(min(k, _K_BUDGET_ELEMS // max(T * TILE, 1)), 1)
     outs = []
     for k0 in range(0, k, kc):
-        gathered = jnp.take(B[:, k0:k0 + kc], cols, axis=0)
+        gathered = jnp.take(B[:, k0:k0 + kc], plan.cols, axis=0)
         outs.append(jax.ops.segment_sum(
-            plan.vals[:, None] * gathered, rows,
-            num_segments=plan.n_row_blocks * 128)[:m])
+            plan.vals[:, None] * gathered, plan.rows, num_segments=m))
     ab = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
     return beta * C + alpha * ab

@@ -104,15 +104,12 @@ def _unstack(plan):
     return jax.tree_util.tree_map(lambda a: a[0], plan)
 
 
-def pick_shard_kind(A: CsrMatrix, op: str = None,
-                    config: SBlasConfig = DEFAULT) -> str:
+def pick_shard_kind(A: CsrMatrix, config: SBlasConfig = DEFAULT) -> str:
     """Plan-kind heuristic shared by the shard partitioners: BELL when the
     global structure is block-friendly, ELL when row occupancy is balanced
     (same `EllPlan.is_profitable` blowup guard as `make_plan`),
     windowed-COO otherwise.  Like `make_plan`, it never picks the routed
-    engine (pass kind="routed" to force it); `op` is accepted for
-    symmetry with `make_plan`."""
-    del op
+    engine (pass kind="routed" to force it)."""
     if (bell_stats(A, config.bsr_block)["blowup"]
             <= config.bsr_blowup_limit):
         return "bsr"
@@ -211,7 +208,7 @@ def build_stacked_plans(locals_, kind: str, band_rows: int, width: int,
 
 
 def partition_row_plans(A: CsrMatrix, n_shards: int, dtype=jnp.float32,
-                        kind: str = None, op: str = None,
+                        kind: str = None,
                         config: SBlasConfig = DEFAULT) -> RowPlanShards:
     """nnz-balanced row-granular shards, each laid out as a fast plan.
 
@@ -223,7 +220,7 @@ def partition_row_plans(A: CsrMatrix, n_shards: int, dtype=jnp.float32,
     band_rows = _round_up(int(np.max(bounds[1:] - bounds[:-1])) or 1, 128)
 
     if kind is None:
-        kind = pick_shard_kind(A, op, config)
+        kind = pick_shard_kind(A, config)
     locals_ = [_local_csr(A, int(bounds[s]), int(bounds[s + 1]), band_rows)
                for s in range(n_shards)]
     stacked, kind = build_stacked_plans(locals_, kind, band_rows,

@@ -40,8 +40,8 @@ costs nothing at run time (the routed plan relabels columns internally
 anyway).  The output stays row-sharded: ZERO output collective.
 
 `xfoot_stats` computes the exchange geometry WITHOUT building plans
-(no edge coloring) — the scaling model prices this mode from real
-footprint bytes instead of an m-byte collective.
+(no edge coloring): the real footprint bytes per call, against the
+m-byte collective of mode 2.
 
 No reference analog: this subsumes the halo mode (banded matrices
 degenerate to adjacent-pair packets with an empty hot set) and is the
@@ -76,8 +76,8 @@ def _round_up(x: int, m: int) -> int:
 class XFootStats(NamedTuple):
     """Exchange geometry of one xfoot partition (all plan-time).
 
-    Per-chip byte counts follow scaling.py's convention (ring
-    collectives, exposed bytes); extraction is priced by the chosen
+    Per-chip byte counts count ring collectives' exposed bytes;
+    extraction is priced by the chosen
     engine (`extract_ns` = modeled per-chip nanoseconds per call)."""
 
     n_shards: int
@@ -222,12 +222,10 @@ def _xfoot_analyze(A: CsrMatrix, n_shards: int, hot_qmin: int = 0):
     }
 
 
-def xfoot_stats(A: CsrMatrix, n_shards: int, itemsize: int = 4,
+def xfoot_stats(A: CsrMatrix, n_shards: int,
                 config: SBlasConfig = DEFAULT) -> XFootStats:
-    """Exchange geometry only (no plan build / edge coloring) — feeds the
-    scaling model real footprint bytes for the xfoot mode.  `itemsize`
-    is accepted for API stability (geometry is dtype-independent)."""
-    del itemsize
+    """Exchange geometry only (no plan build / edge coloring): the real
+    footprint bytes of the xfoot mode, dtype-independent."""
     require(n_shards >= 1, PartitionError, f"bad n_shards {n_shards}")
     return _xfoot_analyze(A, n_shards, config.xfoot_hot_qmin)["stats"]
 
@@ -415,7 +413,7 @@ def partition_xfoot(A: CsrMatrix, n_shards: int, dtype=jnp.float32,
     locals_ = [_remap_local(A, s, lay) for s in range(n_shards)]
 
     if kind is None:
-        kind = pick_shard_kind(A, op="spmv", config=config)
+        kind = pick_shard_kind(A, config)
     stacked, kind = build_stacked_plans(locals_, kind, band_rows, w_ext,
                                         A.nnz, dtype, config)
     return XFootShards(

@@ -1,386 +1,51 @@
-"""Scaling-efficiency model + harness.
+"""Device data-movement prices for the xfoot planner (parallel/xfoot.py).
 
-The reference has no model at all — it just prints per-GPU NCCL ms
-(spmm.h:258-271).  This module PROJECTS multi-device efficiency from a
-measured single-device kernel time and an analytic collective-cost model
-over the device links, per distribution mode; `measured_multichip`
-measures the same modes when several devices are present.
-
-Model (ring algorithms; bytes are per device, exposed):
-
-* mode 1 (partition dense B)  — zero collective: eff = 1.
-* mode 2 + psum (all-reduce of full C, the reference's semantics,
-  spmm.h:260-262) — 2 * S * (n-1)/n bytes, S = result bytes.
-* mode 2 + psum_scatter — S * (n-1)/n bytes (half the all-reduce; the
-  upgrade this framework applies over the reference).
-* halo (ppermute x-exchange) — 2 * halo_rows * itemsize bytes, constant
-  in n: the banded path scales essentially linearly.
-
-    t_n = t_1 / n + bytes(n) / link_bw         (compute assumed perfectly
-    eff(n) = t_1 / (n * t_n)                    nnz-balanced, which the
-                                                partitioner guarantees)
-
-`link_bw` is a MODEL PARAMETER (default 4.5e11 B/s: one direction of an
-H100's NVLink, NVIDIA's data sheet — override with SBLAS_LINK_BW or the
-function argument; the model's value is the mode RANKING and the
-comm:compute ratio, not the third digit).  The projections are not
-measurements: four-card numbers come from running the modes on four
-cards (chip_smoke.py --devices 4).
+`GATHER_NS` is XLA's elementwise gather cost and `ROUTE_NS` the routed
+permutation's (ops/route.py) cost, both in ns per element; the planner
+prices its two extraction engines with them.  They come from
+`scaling_calib.json` at the repo root, written by
+experiments/calibrate_scaling.py with the device kind it ran on; an
+SBLAS_GATHER_NS / SBLAS_ROUTE_NS environment variable overrides the
+file, and the built-in defaults are that file's values.  Multi-device
+times are measured, not modelled (chip_smoke.py --devices 4).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
-from typing import Tuple
 
 
 def _load_calib():
     """Device calibration record written by
     experiments/calibrate_scaling.py — per-size measurements plus the
-    median the model consumes, with the device kind they came from."""
+    median the planner consumes, with the device kind they came from."""
     path = os.environ.get(
         "SBLAS_CALIB_FILE",
         os.path.join(os.path.dirname(__file__), "..", "scaling_calib.json"))
     try:
         with open(path) as fh:
             return json.load(fh)
-    except Exception:
+    except (OSError, ValueError):
         return None
 
 
 _CALIB = _load_calib()
 
 
-def _const(env: str, calib_key, default: float):
-    """(value, provenance) with env > calibration file > model default."""
+def _const(env: str, calib_key: str, default: float):
+    """(value, provenance) with env > calibration file > default."""
     if env in os.environ:
         return float(os.environ[env]), f"env {env}"
-    if _CALIB and calib_key and calib_key in _CALIB:
+    if _CALIB and calib_key in _CALIB:
         meta = _CALIB.get("meta", {})
         return float(_CALIB[calib_key]), (
             f"measured {meta.get('date', '?')} on "
             f"{meta.get('device_kind', meta.get('platform', '?'))}")
-    return default, "model default"
+    return default, "default"
 
 
-# Link bandwidths are MODEL PARAMETERS (no single-device measurement can
-# produce them): one direction of an H100's NVLink (450 GB/s, NVIDIA's
-# data sheet) within a host; a 400 Gb/s NIC per host shared by four
-# cards between hosts.  The model's value is the mode RANKING and the
-# comm:compute ratio, not the third digit.  Override with SBLAS_LINK_BW /
-# SBLAS_DCN_BW.
-LINK_BW_DEFAULT, LINK_BW_SRC = _const("SBLAS_LINK_BW", None, 4.5e11)
-DCN_BW_DEFAULT, DCN_BW_SRC = _const("SBLAS_DCN_BW", None, 1.25e10)
-
-# Device-side data-movement constants: XLA elementwise gather ns/element
-# and routed-permutation (ops/route.py) ns/element of padded route space.
-# The xfoot planner and the scaling model price extraction with these;
-# calibrated at three sizes each when scaling_calib.json is present (the
-# defaults are that file's values, used when it is absent).
 GATHER_NS, GATHER_NS_SRC = _const("SBLAS_GATHER_NS", "gather_ns_median",
                                   0.0134)
 ROUTE_NS, ROUTE_NS_SRC = _const("SBLAS_ROUTE_NS", "route_ns_median",
                                 0.0523)
-
-
-def param_provenance() -> str:
-    """One line a scorecard reader needs to tell measured anchors from
-    model assumptions without opening the source."""
-    return (f"link_bw={LINK_BW_DEFAULT / 1e9:.0f} GB/s ({LINK_BW_SRC}), "
-            f"dcn_bw={DCN_BW_DEFAULT / 1e9:.0f} GB/s ({DCN_BW_SRC}), "
-            f"gather_ns={GATHER_NS:.2f} ({GATHER_NS_SRC}), "
-            f"route_ns={ROUTE_NS:.3f} ({ROUTE_NS_SRC})")
-
-
-def collective_bytes(mode: str, result_bytes: int, n: int,
-                     halo_bytes: int = 0, xfoot_bytes: float = 0) -> float:
-    """Exposed per-chip collective bytes for one op invocation."""
-    if n <= 1:
-        return 0.0
-    if mode == "mode1":
-        return 0.0
-    if mode == "mode2_psum":
-        return 2.0 * result_bytes * (n - 1) / n
-    if mode == "mode2_psum_scatter":
-        return 1.0 * result_bytes * (n - 1) / n
-    if mode == "halo":
-        return 2.0 * halo_bytes
-    if mode == "xfoot":
-        # hot psum + packet all_to_all, real plan-time footprint counts
-        # (parallel/xfoot.py::XFootStats.comm_bytes)
-        return xfoot_bytes
-    raise ValueError(f"unknown mode {mode!r}")
-
-
-@dataclasses.dataclass(frozen=True)
-class ModeProjection:
-    mode: str
-    n: int
-    t1_ms: float
-    t_n_ms: float
-    comm_ms: float
-    efficiency: float  # vs linear: t1 / (n * t_n)
-
-
-def project(mode: str, t1_ms: float, result_bytes: int, n: int,
-            halo_bytes: int = 0, link_bw: float = LINK_BW_DEFAULT,
-            xfoot_stats=None, itemsize: int = 4,
-            shard_ms: float = None) -> ModeProjection:
-    """Project one mode's n-chip time and efficiency from measured t1.
-
-    `xfoot_stats` (parallel/xfoot.py::XFootStats) prices the xfoot mode:
-    real footprint collective bytes + the extraction engine's modeled
-    device time.  `shard_ms` substitutes a MEASURED per-shard compute
-    time for the t1/n assumption (the per-shard routed plan's x-route
-    shrinks with the shard, so t1/n overstates compute)."""
-    xf_bytes = (xfoot_stats.comm_bytes(itemsize)
-                if xfoot_stats is not None else 0)
-    comm_ms = collective_bytes(mode, result_bytes, n, halo_bytes,
-                               xf_bytes) / link_bw * 1e3
-    if mode == "xfoot" and xfoot_stats is not None:
-        comm_ms += xfoot_stats.extract_ns * 1e-6
-    t_n = (shard_ms if shard_ms is not None else t1_ms / n) + comm_ms
-    return ModeProjection(mode=mode, n=n, t1_ms=t1_ms, t_n_ms=t_n,
-                          comm_ms=comm_ms,
-                          efficiency=t1_ms / (n * t_n) if t_n else 1.0)
-
-
-def best_mode(projections) -> ModeProjection:
-    return max(projections, key=lambda p: p.efficiency)
-
-
-def project_hier(t1_ms: float, result_bytes: int, n_slices: int,
-                 chips_per_slice: int, link_bw: float = LINK_BW_DEFAULT,
-                 dcn_bw: float = DCN_BW_DEFAULT,
-                 shard_ms: float = None) -> ModeProjection:
-    """Two-tier mode-2 projection (parallel/hier.py): the in-host
-    reduce-scatter moves S*(c-1)/c bytes/chip; the cross-host psum
-    then carries only the 1/c row band over DCN — 2*(S/c)*(s-1)/s
-    bytes/chip.  Compare against flat mode2_psum_scatter whose single
-    collective would ride the slowest (DCN) tier end to end."""
-    s, c = n_slices, chips_per_slice
-    n = s * c
-    link_ms = (result_bytes * (c - 1) / c / link_bw * 1e3) if c > 1 else 0.0
-    dcn_ms = (2.0 * (result_bytes / max(c, 1)) * (s - 1) / s
-              / dcn_bw * 1e3) if s > 1 else 0.0
-    comm_ms = link_ms + dcn_ms
-    t_n = (shard_ms if shard_ms is not None else t1_ms / n) + comm_ms
-    return ModeProjection(mode=f"hier_{s}x{c}", n=n, t1_ms=t1_ms,
-                          t_n_ms=t_n, comm_ms=comm_ms,
-                          efficiency=t1_ms / (n * t_n) if t_n else 1.0)
-
-
-def project_flat_over_dcn(t1_ms: float, result_bytes: int, n_slices: int,
-                          chips_per_slice: int,
-                          dcn_bw: float = DCN_BW_DEFAULT) -> ModeProjection:
-    """Flat psum_scatter over all s*c devices when the ring crosses
-    slices: the whole collective is throttled to the DCN tier."""
-    n = n_slices * chips_per_slice
-    comm_ms = result_bytes * (n - 1) / n / dcn_bw * 1e3 if n > 1 else 0.0
-    t_n = t1_ms / n + comm_ms
-    return ModeProjection(mode=f"flat_{n_slices}x{chips_per_slice}", n=n,
-                          t1_ms=t1_ms, t_n_ms=t_n, comm_ms=comm_ms,
-                          efficiency=t1_ms / (n * t_n) if t_n else 1.0)
-
-
-def project_table(op: str, t1_ms: float, m: int, k: int, itemsize: int,
-                  halo_rows: int = 0, chips: Tuple[int, ...] = (4, 16),
-                  link_bw: float = LINK_BW_DEFAULT, xfoot: dict = None,
-                  xfoot_shard_ms: dict = None) -> dict:
-    """Structured per-chip-count projections for one workload:
-    {n: [ModeProjection, ...]} over every applicable distribution mode.
-
-    `xfoot` maps chip count -> XFootStats (parallel/xfoot.py) to price
-    the footprint-compressed x-exchange mode; `xfoot_shard_ms` maps chip
-    count -> MEASURED per-shard compute ms.  When present, the measured
-    number replaces the t1/n assumption for EVERY mode-2-family
-    projection at that chip count — all those modes run the same
-    per-shard plans, and charging one mode measured compute while
-    another gets the optimistic t1/n would bias the comparison (t1/n
-    understates small shards: fixed route/launch costs do not shrink
-    with the shard)."""
-    result_bytes = m * max(k, 1) * itemsize
-    halo_bytes = halo_rows * max(k, 1) * itemsize
-    # mode 1 (partition dense B, zero collectives) only exists for SpMM —
-    # SpMV has no B columns to shard (reference spmv.h has only the
-    # partition-A driver)
-    modes = (["mode1"] if op == "spmm" else []) \
-        + ["mode2_psum", "mode2_psum_scatter"]
-    if halo_rows:
-        modes.append("halo")
-    table = {}
-    for n in chips:
-        sh = (xfoot_shard_ms or {}).get(n)
-        projs = [project(mo, t1_ms, result_bytes, n, halo_bytes, link_bw,
-                         shard_ms=(sh if mo.startswith("mode2") else None))
-                 for mo in modes]
-        if xfoot and n in xfoot:
-            projs.append(project(
-                "xfoot", t1_ms, result_bytes, n, halo_bytes, link_bw,
-                xfoot_stats=xfoot[n], itemsize=itemsize, shard_ms=sh))
-        table[n] = projs
-    return table
-
-
-def report_lines(op: str, t1_ms: float, m: int, k: int, itemsize: int,
-                 halo_rows: int = 0, chips: Tuple[int, ...] = (4, 16),
-                 link_bw: float = LINK_BW_DEFAULT, xfoot: dict = None,
-                 xfoot_shard_ms: dict = None, table: dict = None):
-    """Human-readable per-mode scaling lines for one workload (see
-    `project_table` for the projection semantics; pass a precomputed
-    `table` to avoid projecting twice when also building the
-    scorecard)."""
-    result_bytes = m * max(k, 1) * itemsize
-    if table is None:
-        table = project_table(op, t1_ms, m, k, itemsize, halo_rows, chips,
-                              link_bw, xfoot, xfoot_shard_ms)
-    lines = [f"# scaling[{op}] t1={t1_ms:.3f} ms, result "
-             f"{result_bytes / 1e6:.1f} MB, link_bw={link_bw / 1e9:.0f} GB/s "
-             f"(model)"]
-    for n, projs in table.items():
-        cells = ", ".join(
-            f"{p.mode} {p.efficiency * 100:.0f}%"
-            + (f" (comm {p.comm_ms:.3f} ms)" if p.comm_ms else "")
-            for p in projs)
-        ok = "meets" if best_mode(projs).efficiency >= 0.8 else "MISSES"
-        lines.append(f"# scaling[{op}] n={n}: {cells} -> best "
-                     f"{best_mode(projs).mode} "
-                     f"{best_mode(projs).efficiency * 100:.0f}% "
-                     f"({ok} 80% target)")
-    return lines
-
-
-def scorecard_lines(rows, target: float = 0.8):
-    """A modelled scaling scorecard block: one aligned row per workload —
-    best mode, strong efficiency per device count, weak efficiency,
-    meets/MISSES against `target`.
-
-    `rows` is a list of (workload, table, weak, note) where `table` is a
-    `project_table` result, `weak` is None or (n_weak, eff_weak) from a
-    measured weak-scaling run, and `note` (may be "") is printed under
-    the row — the place to state a caveat next to the row it
-    qualifies."""
-    chips = sorted({n for _, table, _, _ in rows for n in table})
-    pct = "{:.0f}%".format
-    header = (["# workload".ljust(26), "best".ljust(20)]
-              + [f"strong n={n}".ljust(12) for n in chips]
-              + ["weak".ljust(12), "verdict"])
-    lines = [f"# ===== scaling scorecard, modelled (target "
-             f">={target * 100:.0f}% of linear) =====",
-             f"# params: {param_provenance()}",
-             "".join(header)]
-    for workload, table, weak, note in rows:
-        bests = {n: best_mode(projs) for n, projs in table.items()}
-        n_max = max(table)
-        misses = [f"strong@{n}" for n in sorted(table)
-                  if bests[n].efficiency < target]
-        if weak is not None and weak[1] < target:
-            misses.append("weak")
-        verdict = "meets" if not misses else (
-            "MISSES " + ",".join(misses)
-            + (f"; weak meets" if weak is not None and weak[1] >= target
-               else ""))
-        cells = (["# " + workload.ljust(24), bests[n_max].mode.ljust(20)]
-                 + [(pct(bests[n].efficiency * 100) if n in table
-                     else "--").ljust(12) for n in chips]
-                 + [(f"{pct(weak[1] * 100)} @n={weak[0]}" if weak
-                     else "--").ljust(12), verdict])
-        lines.append("".join(cells))
-        if note:
-            lines.append(f"#   ^ {note}")
-    lines.append("# =====")
-    return lines
-
-
-def measured_multichip(op: str, A, k: int, dtype, chips) -> list:
-    """When several devices exist, measure per-call time directly (the
-    virtual CPU mesh measures correctness, not time).  Returns
-    [(n, per-call ms)] over `chips`; each device count runs on a sub-mesh
-    of the first n devices.  The CPU-mesh test exercises the same path so
-    it cannot bit-rot."""
-    import jax
-    import jax.numpy as jnp
-
-    from .containers import DenseMatrix, DenseVector
-    from .parallel import (make_mesh, partition_row_plans,
-                           spmm_mode2_planned, spmv_dist_planned)
-    from .utils.benchtime import loop_time_ms
-    lines = []
-    for n in chips:
-        if n > len(jax.devices()):
-            break
-        mesh = make_mesh(n)
-        shards = partition_row_plans(A, n, dtype=dtype,
-                                     op="spmv" if op == "spmv" else None)
-        if op == "spmv":
-            x = jnp.asarray(DenseVector.random(A.width).values, dtype)
-            y = jnp.asarray(
-                DenseVector.constant(A.height, 1.0).values, dtype)
-
-            def step(yc, sh, xv):
-                # carry as the accumulate operand + nonzero eps: a 0.0
-                # coupling folds and lets XLA hoist the loop body
-                return spmv_dist_planned(sh, xv + 1e-6 * yc[0], 1.0, 1.0,
-                                         yc, mesh)
-
-            ms = loop_time_ms(step, y, args=(shards, x))
-        else:
-            B = jnp.asarray(DenseMatrix.random(A.width, k).values, dtype)
-            C = jnp.asarray(
-                DenseMatrix.constant(A.height, k, 1.0).values, dtype)
-
-            def step(Cc, sh, Bv):
-                return spmm_mode2_planned(sh, Bv + 1e-6 * Cc[0, 0], 1.0,
-                                          1.0, Cc, mesh)
-
-            ms = loop_time_ms(step, C, args=(shards, B))
-        lines.append((n, ms))
-    return lines
-
-
-def main() -> int:
-    """Standalone harness: measure single-chip t1 on both reference
-    workloads and print the per-mode scaling table."""
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from .containers import DenseMatrix, DenseVector
-    from .io.generate import fem_shell_like, webbase_like
-    from .ops import make_plan, spmm, spmv
-    from .utils.benchtime import loop_time_ms
-
-    K = 64
-    A = fem_shell_like(dtype=np.float32)
-    B = jnp.asarray(DenseMatrix.random(A.width, K, dtype=np.float32).values)
-    C = jnp.asarray(
-        DenseMatrix.constant(A.height, K, 1.0, dtype=np.float32).values)
-    plan = make_plan(A, dtype=jnp.float32, op="spmm")
-
-    def mstep(Cc, p):
-        return spmm(p, B + 1e-6 * Cc[0, 0], 1.0, 1.0, Cc)
-
-    t1_mm = loop_time_ms(mstep, C, args=(plan,))
-    for line in report_lines("spmm", t1_mm, A.shape[0], K, 4,
-                             halo_rows=2412):
-        print(line)
-
-    W = webbase_like(dtype=np.float32)
-    x = jnp.asarray(DenseVector.random(W.width, dtype=np.float32).values)
-    y = jnp.asarray(
-        DenseVector.constant(W.height, 1.0, dtype=np.float32).values)
-    wplan = make_plan(W, dtype=jnp.float32, op="spmv")
-
-    def vstep(yc, p):
-        return spmv(p, x + 1e-6 * yc[0], 1.0, 1.0, yc)
-
-    t1_mv = loop_time_ms(vstep, y, args=(wplan,))
-    for line in report_lines("spmv", t1_mv, W.shape[0], 1, 4):
-        print(line)
-    return 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

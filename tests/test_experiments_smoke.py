@@ -70,3 +70,36 @@ def test_stress4m(toy_world, capsys):
     assert mod.main() == 0
     out = capsys.readouterr().out
     assert "oracle[0:64] max_rel" in out and "routed SpMV" in out
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm"])
+def test_trace_kinds(toy_world, tmp_path, op):
+    """Every form of one workload is oracle-checked, traced and
+    summarized (device lines differ on the CPU; the wiring is the
+    point)."""
+    import jax.numpy as jnp
+
+    from sblas.containers import DenseMatrix, DenseVector
+    from sblas.io.generate import fem_shell_like, webbase_like
+    from sblas.ops.cpu_reference import spmm_cpu, spmv_cpu
+    mod = _load("trace_kinds")
+    if op == "spmv":
+        A = webbase_like(dtype=np.float32)
+        X = DenseVector.random(A.width, dtype=np.float32)
+        Y = DenseVector.constant(A.height, 1.0, dtype=np.float32)
+        want = spmv_cpu(A, X, 3.0, 4.0, Y)
+        forms = {"wcoo", "coo", "routed", "coo_unsorted", "cusparse"}
+    else:
+        A = fem_shell_like(nx=24, ny=12, dof=6, n_target=24 * 12 * 6,
+                           dtype=np.float32)
+        X = DenseMatrix.random(A.width, 8, dtype=np.float32)
+        Y = DenseMatrix.constant(A.height, 8, 1.0, dtype=np.float32)
+        want = spmm_cpu(A, X, 3.0, 4.0, Y)
+        forms = {"dia", "bsr", "ell", "wcoo", "coo", "wcoo_sorted",
+                 "cusparse"}
+    res = mod.trace_workload(op, A, jnp.asarray(X.values),
+                             jnp.asarray(Y.values), want,
+                             str(tmp_path / "traces"), calls=2)
+    assert set(res) >= forms
+    for r in res.values():
+        assert r["span_us_per_call"] > 0 and 0.0 <= r["idle_share"] <= 1.0

@@ -102,7 +102,6 @@ def test_fuzz_um_hostdense(seed):
 def test_fuzz_distributed_kinds(seed):
     """Random structures through partition_row_plans with every applicable
     kind, distributed SpMV/SpMM vs the oracle on the 8-device mesh."""
-    from sblas.config import SBlasConfig
     from sblas.parallel import (make_mesh, partition_row_plans,
                                     spmm_mode2_planned, spmv_dist_planned,
                                     sync_to_host)
@@ -114,10 +113,8 @@ def test_fuzz_distributed_kinds(seed):
     x = DenseVector.random(A.width)
     y = DenseVector.random(A.height)
     want_v = spmv_cpu(A, x, alpha, beta, y)
-    cfg = SBlasConfig(routed_min_nnz=1, routed_min_width=1)
     for kind in ("ell", "coo", "wcoo", "routed", None):
-        shards = partition_row_plans(A, 4, dtype=jnp.float64, kind=kind,
-                                     op="spmv", config=cfg)
+        shards = partition_row_plans(A, 4, dtype=jnp.float64, kind=kind)
         got = sync_to_host(spmv_dist_planned(
             shards, jnp.asarray(x.values), alpha, beta,
             jnp.asarray(y.values), mesh))

@@ -5,7 +5,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sblas.config import SBlasConfig
 from sblas.containers import DenseMatrix, DenseVector
 from sblas.io.generate import (adversarial_skew, fem_banded_like,
                                    uniform_random)
@@ -52,11 +51,9 @@ def test_hier_unstructured_kinds():
 
 
 def test_hier_routed_kind():
-    cfg = SBlasConfig(routed_min_nnz=256, routed_min_width=256)
     A = uniform_random(1024, 1024, nnz_per_row=3, seed=8,
                        dtype=np.float64)
-    shards = partition_row_plans(A, 8, dtype=jnp.float64, kind="routed",
-                                 config=cfg)
+    shards = partition_row_plans(A, 8, dtype=jnp.float64, kind="routed")
     mesh = make_mesh2(2, 4)
     x = DenseVector.random(A.width)
     y = DenseVector.constant(A.height, 1.0)
@@ -74,11 +71,3 @@ def test_hier_shard_count_mismatch():
         spmv_dist_hier(shards, jnp.zeros(A.width), 1.0, 0.0,
                        jnp.zeros(A.height), mesh)
 
-
-def test_project_hier_beats_flat_over_dcn():
-    from sblas.scaling import project_flat_over_dcn, project_hier
-    S = 4_000_000  # webbase-class result bytes
-    h = project_hier(0.77, S, 4, 4)
-    f = project_flat_over_dcn(0.77, S, 4, 4)
-    assert h.comm_ms < f.comm_ms
-    assert h.efficiency > f.efficiency

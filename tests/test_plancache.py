@@ -128,13 +128,10 @@ def test_roundtrip_row_plan_shards(tmp_path, kind):
 
 
 def test_roundtrip_routed_shards(tmp_path):
-    from sblas.config import SBlasConfig
     from sblas.parallel import (make_mesh, partition_row_plans,
                                     spmv_dist_planned)
-    cfg = SBlasConfig(routed_min_nnz=256, routed_min_width=256)
     A = uniform_random(512, 512, 3, seed=5)
-    shards = partition_row_plans(A, 8, dtype=jnp.float64, kind="routed",
-                                 config=cfg)
+    shards = partition_row_plans(A, 8, dtype=jnp.float64, kind="routed")
     p = tmp_path / "routed_shards.npz"
     save_plan(str(p), shards)
     shards2 = load_plan(str(p))

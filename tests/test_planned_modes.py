@@ -106,11 +106,8 @@ def test_default_kind_skew_no_ell_blowup(mesh):
 @pytest.mark.parametrize("reduce", ["psum", "psum_scatter"])
 def test_spmv_dist_planned_routed(mesh, reduce):
     """Distributed SpMV rides per-shard RoutedPlans."""
-    from sblas.config import SBlasConfig
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
     A = uniform_random(1500, 1024, nnz_per_row=4, seed=3, dtype=np.float64)
-    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed",
-                                 config=cfg)
+    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed")
     assert shards.kind == "routed"
     x = DenseVector.random(A.width)
     y = DenseVector.constant(A.height, 1.0)
@@ -121,25 +118,17 @@ def test_spmv_dist_planned_routed(mesh, reduce):
 
 
 def test_routed_heuristic_needs_spmv_op():
-    """kind=None never picks routed, under op='spmv' or not (like
-    make_plan's ladder); the COO-family fallback is chosen instead."""
-    from sblas.config import SBlasConfig
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
+    """kind=None never picks routed (like make_plan's ladder); the
+    COO-family fallback is chosen instead."""
     A = adversarial_skew(m=1500, n=1024, heavy_rows=2, heavy_nnz=512,
                          seed=3, dtype=np.float64)
-    assert partition_row_plans(A, 4, kind=None, op="spmv",
-                               config=cfg).kind in ("wcoo", "coo")
-    assert partition_row_plans(A, 4, kind=None,
-                               config=cfg).kind in ("wcoo", "coo")
+    assert partition_row_plans(A, 4, kind=None).kind in ("wcoo", "coo")
 
 
 def test_routed_shards_reject_spmm(mesh):
-    from sblas.config import SBlasConfig
     from sblas.utils.errors import PartitionError
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=512)
     A = uniform_random(1500, 1024, nnz_per_row=4, seed=3, dtype=np.float64)
-    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed",
-                                 config=cfg)
+    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind="routed")
     B = DenseMatrix.random(A.width, 5)
     C = DenseMatrix.constant(A.height, 5, 1.0)
     with pytest.raises(PartitionError):
@@ -175,8 +164,7 @@ def test_spmv_dist_planned_wcoo(mesh):
 
 @pytest.mark.parametrize("alpha,beta", [(1.0, 1.0), (3.0, 4.0)])
 def test_spmm_halo_planned(mesh, banded, alpha, beta):
-    """Halo-exchange SpMM: neighbor B row blocks over the ring — backs the
-    scaling report's spmm halo projection with a real mode."""
+    """Halo-exchange SpMM: neighbor B row blocks over the ring."""
     from sblas.parallel import spmm_halo_planned
     shards = partition_halo_dia(banded, N_DEV, dtype=jnp.float64)
     B = DenseMatrix.random(banded.width, 7)

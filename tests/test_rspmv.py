@@ -54,31 +54,21 @@ def test_alpha_beta_variants():
 
 def test_make_plan_heuristic():
     """The routed engine is reachable by force= only: the auto ladder
-    never picks it (it measured slower than windowed COO on the GPU),
-    even where its profitability guard holds."""
+    never picks it (it measured slower than windowed COO on the GPU)."""
     big = webbase_like(n=70000, avg_deg=4.0)
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=1000)
-    assert RoutedPlan.is_profitable(big, cfg)
-    plan = make_plan(big, op="spmv", config=cfg, dtype=jnp.float64,
-                     force="routed")
+    plan = make_plan(big, op="spmv", dtype=jnp.float64, force="routed")
     assert isinstance(plan, RoutedPlan)
-    assert not isinstance(make_plan(big, op="spmv", config=cfg),
-                          RoutedPlan)
+    assert not isinstance(make_plan(big, op="spmv"), RoutedPlan)
     # not for mixed / spmm use
-    assert not isinstance(make_plan(big, config=cfg), RoutedPlan)
-    # banded matrices keep the DIA path even when routed would qualify
+    assert not isinstance(make_plan(big), RoutedPlan)
+    # banded matrices keep the DIA path
     banded = fem_banded_like(n=2000, half_band=4)
-    assert isinstance(make_plan(banded, op="spmv", config=cfg), DiaPlan)
-    # default thresholds reject small matrices
-    small = uniform_random(500, 500, 3, seed=1)
-    assert not RoutedPlan.is_profitable(small)
+    assert isinstance(make_plan(banded, op="spmv"), DiaPlan)
 
 
 def test_dispatch_via_generic_spmv():
     A = webbase_like(n=70000, avg_deg=3.0)
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=1000)
-    plan = make_plan(A, op="spmv", config=cfg, dtype=jnp.float64,
-                     force="routed")
+    plan = make_plan(A, op="spmv", dtype=jnp.float64, force="routed")
     assert isinstance(plan, RoutedPlan)
     x = DenseVector.random(A.width)
     y = DenseVector.constant(A.height, 1.0)
@@ -246,8 +236,7 @@ class TestStackCapSplit:
         from sblas.parallel import (make_mesh, partition_row_plans,
                                         spmv_dist_planned, sync_to_host)
         A = self._heavy_row_matrix(m=1024, n=1024)
-        cfg = SBlasConfig(routed_min_nnz=256, routed_min_width=256,
-                          routed_stack_cap=64)
+        cfg = SBlasConfig(routed_stack_cap=64)
         shards = partition_row_plans(A, 8, dtype=jnp.float64,
                                      kind="routed", config=cfg)
         x = DenseVector.random(A.width)
@@ -372,8 +361,7 @@ def test_shared_routed_sizes_appendix_alignment():
     from sblas.config import SBlasConfig
     rng = np.random.RandomState(4)
     n = 4096
-    cfg = SBlasConfig(routed_stack_cap=256, routed_min_nnz=1,
-                      routed_min_width=1)
+    cfg = SBlasConfig(routed_stack_cap=256)
 
     def mk(rows, deg):
         r = np.repeat(np.arange(rows, dtype=np.int64), deg)
@@ -395,9 +383,7 @@ def test_spmv_default_y_routed():
     """spmv(plan, x) with y=None must work for RoutedPlan (its values
     live in gvals, not vals — the dispatcher crashed on plan.vals)."""
     A = webbase_like(n=50000, avg_deg=3.0, seed=13)
-    cfg = SBlasConfig(routed_min_nnz=1000, routed_min_width=1000)
-    plan = make_plan(A, op="spmv", config=cfg, dtype=jnp.float64,
-                     force="routed")
+    plan = make_plan(A, op="spmv", dtype=jnp.float64, force="routed")
     assert isinstance(plan, RoutedPlan)
     x = DenseVector.random(A.width)
     got = spmv(plan, jnp.asarray(x.values))

@@ -1,157 +1,83 @@
-"""Scaling-efficiency model (modelled projections over the device links)."""
+"""Device data-movement prices (scaling.py) and how the xfoot planner
+uses them."""
 
+import json
+
+import numpy as np
 import pytest
 
-from sblas.scaling import (ModeProjection, best_mode, collective_bytes,
-                               project, project_table, report_lines,
-                               scorecard_lines)
+from sblas import scaling
+from sblas.io.generate import webbase_like
+from sblas.ops.route import routable_size
+from sblas.parallel import xfoot_stats
 
 
-def test_collective_bytes_ring_formulas():
-    S = 1000
-    assert collective_bytes("mode1", S, 8) == 0.0
-    # ring all-reduce moves 2S(n-1)/n per chip, reduce-scatter half that
-    assert collective_bytes("mode2_psum", S, 8) == pytest.approx(1750.0)
-    assert collective_bytes("mode2_psum_scatter", S, 8) == pytest.approx(875.0)
-    assert collective_bytes("halo", S, 8, halo_bytes=64) == 128.0
-    assert collective_bytes("mode2_psum", S, 1) == 0.0
+@pytest.fixture(scope="module")
+def web():
+    return webbase_like(n=20_000, avg_deg=3.0, seed=3, local_scale=200.0,
+                        dtype=np.float64)
 
 
-def test_projection_monotonicity():
-    """More comm -> lower efficiency; mode1 is always linear."""
-    t1, S = 1.0, 10_000_000
-    p1 = project("mode1", t1, S, 16)
-    p2 = project("mode2_psum", t1, S, 16)
-    p3 = project("mode2_psum_scatter", t1, S, 16)
-    assert p1.efficiency == pytest.approx(1.0)
-    assert p3.efficiency > p2.efficiency
-    assert best_mode([p1, p2, p3]).mode == "mode1"
+def test_calibration_file_feeds_constants():
+    """The committed record is the source of both prices, and the
+    provenance names the device it was measured on."""
+    calib = scaling._load_calib()
+    assert calib is not None
+    assert scaling.GATHER_NS == calib["gather_ns_median"] > 0
+    assert scaling.ROUTE_NS == calib["route_ns_median"] > 0
+    kind = calib["meta"]["device_kind"]
+    assert kind in scaling.GATHER_NS_SRC and kind in scaling.ROUTE_NS_SRC
 
 
-def test_efficiency_definition():
-    # with zero comm, t_n = t1/n exactly -> efficiency 1
-    p = project("mode1", 2.0, 123, 4)
-    assert p.t_n_ms == pytest.approx(0.5)
-    assert p.efficiency == pytest.approx(1.0)
-    # with comm equal to compute, efficiency halves
-    t1, n = 1.0, 4
-    bw = 1e9
-    S = None
-    # choose S so comm_ms == t1/n: 2*S*(n-1)/n / bw * 1e3 = 0.25
-    S = 0.25 * bw / 1e3 * n / (2 * (n - 1))
-    p = project("mode2_psum", t1, S, n, link_bw=bw)
-    assert p.efficiency == pytest.approx(0.5, rel=1e-6)
+def test_env_overrides_calibration(monkeypatch):
+    monkeypatch.setenv("SBLAS_GATHER_NS", "0.5")
+    assert scaling._const("SBLAS_GATHER_NS", "gather_ns_median", 9.0) == (
+        0.5, "env SBLAS_GATHER_NS")
 
 
-def test_report_flags_80pct_target():
-    # tiny comm: meets target
-    lines = report_lines("spmv", 1.0, 1_000_000, 1, 4, chips=(16,))
-    assert any("meets 80% target" in ln or "MISSES 80% target" in ln
-               for ln in lines)
-    # monstrous result bytes: full-C all-reduce must miss at n=16 while
-    # mode1 keeps the workload at 100%
-    lines = report_lines("spmm", 0.1, 10_000_000, 64, 4, chips=(16,))
-    joined = "\n".join(lines)
-    assert "mode1 100%" in joined
+def test_missing_calibration_falls_back_to_default(monkeypatch):
+    monkeypatch.delenv("SBLAS_ROUTE_NS", raising=False)
+    monkeypatch.setattr(scaling, "_CALIB", None)
+    assert scaling._const("SBLAS_ROUTE_NS", "route_ns_median", 9.0) == (
+        9.0, "default")
 
 
-def test_measured_multichip_runs_per_chip_count():
-    """The measuring path must stay alive: one entry
-    per chip count on its own sub-mesh, finite positive times."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from sblas.io.generate import fem_banded_like
-    from sblas.scaling import measured_multichip
-
-    A = fem_banded_like(n=512, half_band=4, dtype=np.float64)
-    rows = measured_multichip("spmv", A, 1, jnp.float64, chips=(2, 4, 8))
-    assert [n for n, _ in rows] == [2, 4, 8]
-    assert all(np.isfinite(ms) and ms > 0 for _, ms in rows)
-    rows_mm = measured_multichip("spmm", A, 8, jnp.float64, chips=(2,))
-    assert len(rows_mm) == 1 and rows_mm[0][1] > 0
+@pytest.mark.parametrize("content,ok", [
+    ({"meta": {"device_kind": "X"}, "gather_ns_median": 1.5}, True),
+    ("not json", False),
+    (None, False),
+])
+def test_load_calib_reads_env_path(monkeypatch, tmp_path, content, ok):
+    path = tmp_path / "calib.json"
+    if content is not None:
+        path.write_text(content if isinstance(content, str)
+                        else json.dumps(content))
+    monkeypatch.setenv("SBLAS_CALIB_FILE", str(path))
+    got = scaling._load_calib()
+    assert (got == content) if ok else got is None
 
 
-def test_xfoot_mode_priced_from_stats():
-    import numpy as np
-
-    from sblas.io.generate import webbase_like
-    from sblas.parallel import xfoot_stats
-
-    A = webbase_like(n=20_000, avg_deg=3.0, seed=3, local_scale=200.0,
-                     dtype=np.float64)
-    st = xfoot_stats(A, 8)
-    p = project("xfoot", 1.0, A.shape[0] * 4, 8, xfoot_stats=st,
-                itemsize=4)
-    # comm must reflect the footprint bytes + extraction model, not the
-    # full result vector
-    full = project("mode2_psum", 1.0, A.shape[0] * 4, 8)
-    assert 0 < p.comm_ms < full.comm_ms
+def test_xfoot_mode_priced_from_stats(web):
+    """The extraction time is the chosen engine's price times its
+    element count, and the footprint exchange moves fewer bytes than
+    mode 2's all-reduce of the whole result."""
+    st = xfoot_stats(web, 8)
+    slots = st.hot_own_max + st.n_shards * st.packet_pad
+    r_x = ((web.shape[1] + 7) // 8 + 127) // 128 * 128
+    flat = scaling.GATHER_NS * slots
+    route = scaling.ROUTE_NS * routable_size(max(r_x, slots))
+    assert st.extract_ns == pytest.approx(min(flat, route))
+    assert st.extract_mode == ("flat" if flat <= route else "route")
+    psum_bytes = 2.0 * web.shape[0] * 4 * 7 / 8
+    assert 0 < st.comm_bytes(4) < psum_bytes
 
 
-def test_project_table_matches_report_lines():
-    """report_lines over a precomputed table must equal the recomputed
-    path — the scorecard and the detail lines must never disagree."""
-    table = project_table("spmm", 1.0, 100_000, 64, 4, halo_rows=500,
-                          chips=(4, 16))
-    assert sorted(table) == [4, 16]
-    via_table = report_lines("spmm", 1.0, 100_000, 64, 4, halo_rows=500,
-                             chips=(4, 16), table=table)
-    recomputed = report_lines("spmm", 1.0, 100_000, 64, 4, halo_rows=500,
-                              chips=(4, 16))
-    assert via_table == recomputed
-
-
-def test_scorecard_format():
-    """Scorecard block: header + one row per workload with per-n strong
-    cells, a weak cell, and an explicit meets/MISSES verdict; notes
-    attach to their row."""
-    t_good = project_table("spmm", 1.0, 1000, 64, 4, chips=(4, 16))
-    # monstrous result bytes at tiny t1: full-C all-reduce misses hard
-    t_bad = project_table("spmv", 0.01, 50_000_000, 1, 4, chips=(4, 16))
-    lines = scorecard_lines([
-        ("spmm shell K=64", t_good, None, ""),
-        ("spmv webbase-1M", t_bad, (4, 0.96), "weak regime note"),
-    ])
-    assert all(ln.startswith("#") for ln in lines)
-    assert "scaling scorecard" in lines[0] and "80%" in lines[0]
-    # parameter provenance line: a reader must be able to tell measured
-    # constants from model defaults inline
-    params = lines[1]
-    assert params.startswith("# params:")
-    for tok in ("link_bw=", "dcn_bw=", "gather_ns=", "route_ns="):
-        assert tok in params, params
-    assert "model default" in params or "measured" in params
-    header = lines[2]
-    assert "strong n=4" in header and "strong n=16" in header
-    assert "weak" in header and "verdict" in header
-    row_good = next(ln for ln in lines if "spmm shell K=64" in ln)
-    assert "meets" in row_good and "mode1" in row_good
-    row_bad = next(ln for ln in lines if "spmv webbase-1M" in ln)
-    assert "MISSES" in row_bad and "96% @n=4" in row_bad
-    assert "weak meets" in row_bad
-    i_bad = lines.index(row_bad)
-    assert lines[i_bad + 1].startswith("#   ^ weak regime note")
-    assert lines[-1] == "# ====="
-
-
-def test_scorecard_flags_weak_miss():
-    t = project_table("spmv", 1.0, 1000, 1, 4, chips=(4,))
-    lines = scorecard_lines([("wl-miss", t, (4, 0.5), "")])
-    row = next(ln for ln in lines if ln.startswith("# wl-miss"))
-    assert "weak" in row and "MISSES" in row and "weak meets" not in row
-
-
-def test_report_lines_include_xfoot_with_measured_shard():
-    import numpy as np
-
-    from sblas.io.generate import webbase_like
-    from sblas.parallel import xfoot_stats
-
-    A = webbase_like(n=20_000, avg_deg=3.0, seed=3, local_scale=200.0,
-                     dtype=np.float64)
-    xf = {8: xfoot_stats(A, 8)}
-    lines = report_lines("spmv", 1.0, A.shape[0], 1, 4, chips=(8,),
-                         xfoot=xf, xfoot_shard_ms={8: 0.1})
-    joined = "\n".join(lines)
-    assert "xfoot" in joined and "best" in joined
+@pytest.mark.parametrize("cheap,mode", [("gather", "flat"),
+                                        ("route", "route")])
+def test_xfoot_engine_follows_prices(monkeypatch, web, cheap, mode):
+    """Whichever engine is priced far cheaper is the one chosen."""
+    monkeypatch.setattr(scaling, "GATHER_NS",
+                        1e-6 if cheap == "gather" else 1e3)
+    monkeypatch.setattr(scaling, "ROUTE_NS",
+                        1e-6 if cheap == "route" else 1e3)
+    assert xfoot_stats(web, 8).extract_mode == mode

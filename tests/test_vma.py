@@ -42,9 +42,7 @@ def A():
 def test_compiled_path_traces_with_check_vma(mesh, A, kind, op):
     """The unstructured kinds' shard programs typecheck under
     check_vma=True."""
-    shards = partition_row_plans(
-        A, N_DEV, dtype=jnp.float64, kind=kind,
-        op=("spmv" if kind == "routed" else None))
+    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind=kind)
     operand = (jnp.zeros((A.shape[1], 16), jnp.float64) if op == "spmm"
                else jnp.zeros(A.shape[1], jnp.float64))
 
@@ -71,8 +69,7 @@ def test_every_kind_runs_with_check_vma(mesh, kind, op):
     A = (fem_banded_like(n=2048, half_band=4, dtype=np.float64)
          if kind in ("dia", "bsr")
          else webbase_like(n=4096, avg_deg=3.0, seed=1, dtype=np.float64))
-    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind=kind,
-                                 op=op)
+    shards = partition_row_plans(A, N_DEV, dtype=jnp.float64, kind=kind)
     if op == "spmv":
         x = DenseVector.random(A.width, dtype=np.float64)
         y = DenseVector.constant(A.height, 1.0, dtype=np.float64)

@@ -42,17 +42,19 @@ def A(request):
 
 def test_plan_invariants(A):
     plan = WcooPlan.from_csr(A, dtype=jnp.float64)
-    relrow = np.asarray(plan.relrow)
-    assert relrow.min() >= 0 and relrow.max() < WINDOW
     assert plan.vals.shape[0] == plan.n_tiles * TILE
+    assert plan.cols.shape == plan.rows.shape == plan.vals.shape
     # values preserved
     np.testing.assert_allclose(np.sort(np.asarray(plan.vals)[
         np.asarray(plan.vals) != 0]), np.sort(A.values[A.values != 0]))
-    # block ids sorted for the final segment-sum
-    # half ids come in (w, w+1) pairs with monotone window starts
-    hid = np.asarray(plan.half_ids)
-    assert np.all(np.diff(hid[0::2]) >= 0)
-    assert np.array_equal(hid[1::2], hid[0::2] + 1)
+    # every tile's rows lie in one 128-aligned window of depth WINDOW,
+    # and window starts are monotone in tile order
+    rows = np.asarray(plan.rows).reshape(plan.n_tiles, TILE)
+    start = rows.min(axis=1) // 128 * 128
+    assert np.all(rows - start[:, None] < WINDOW)
+    assert np.all(np.diff(start) >= 0)
+    assert rows.min() >= 0 and rows.max() < max(A.shape[0], 1)
+    assert np.asarray(plan.cols).max(initial=0) < max(A.shape[1], 1)
 
 
 @pytest.mark.parametrize("alpha,beta", [(1.0, 1.0), (3.0, 4.0)])

@@ -86,10 +86,9 @@ def test_rectangular(mesh):
 
 
 def test_routed_kind(mesh):
-    cfg = SBlasConfig(routed_min_nnz=256, routed_min_width=256)
     A = uniform_random(2048, 2048, nnz_per_row=3, seed=7,
                        dtype=np.float64)
-    _check(A, mesh, kind="routed", config=cfg)
+    _check(A, mesh, kind="routed")
 
 
 @pytest.mark.parametrize("kind", ["coo", "ell", "dia"])
@@ -111,7 +110,7 @@ def test_alpha_beta_zero(mesh):
 def test_stats_cheap_and_consistent():
     A = webbase_like(n=20_000, avg_deg=3.0, seed=3, local_scale=200.0,
                      dtype=np.float64)
-    st = xfoot_stats(A, N_DEV, itemsize=8)
+    st = xfoot_stats(A, N_DEV)
     shards = partition_xfoot(A, N_DEV, dtype=jnp.float64, kind="coo")
     assert st == shards.stats
     assert st.comm_bytes(8) > 0
